@@ -1,0 +1,60 @@
+"""Weight conversion into the port, and the port's full-width key sets.
+
+``from_jax_params`` must give exactly what the JAX package's
+``export_state_dict`` gives (key for key, value for value); the port's
+SD-1.5 modules, built on the meta device (no memory, no weights), must hold
+exactly the keys and shapes of the real checkpoints (tests/manifests/,
+enumerated independently of either converter).
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from tml_image_editing_defense_tpu.models import build_model as jax_build_model
+from tml_image_editing_defense_tpu.models.convert import export_state_dict
+
+from tml_image_editing_defense_torch.models.convert import from_jax_params
+from tml_image_editing_defense_torch.models.model_zoo import build_model
+
+MANIFESTS = Path(__file__).parent / "manifests"
+
+
+@pytest.fixture(scope="module")
+def jtiny_params():
+    m = jax_build_model("tiny", key=jax.random.key(0), image_size=32, fast_init=True)
+    return jax.device_get(m.params)
+
+
+@pytest.mark.parametrize("part,kind", [("unet", "unet"), ("vae", "vae"), ("text", "clip")])
+def test_from_jax_params_equals_export_state_dict(jtiny_params, part, kind):
+    params = jtiny_params[part][0] if part == "text" else jtiny_params[part]
+    want = export_state_dict(params, kind)
+    got = from_jax_params(params, kind)
+    assert set(got) == set(want)
+    for key, arr in want.items():
+        assert isinstance(got[key], torch.Tensor)
+        np.testing.assert_array_equal(got[key].numpy(), arr, err_msg=key)
+
+
+@pytest.mark.parametrize("part,name", [("unet", "sd15_unet"), ("vae", "sd15_vae"),
+                                        ("text", "sd15_text")])
+def test_sd15_modules_match_checkpoint_manifest(part, name):
+    model = build_model("sd15", device="meta")
+    module = model.text_models[0] if part == "text" else getattr(model, part)
+    got = {k: tuple(v.shape) for k, v in module.state_dict().items()}
+    want = {k: tuple(v) for k, v in json.loads((MANIFESTS / f"{name}.json").read_text()).items()}
+    assert sorted(set(want) - set(got)) == []
+    assert sorted(set(got) - set(want)) == []
+    assert {k: (got[k], want[k]) for k in want if got[k] != want[k]} == {}
+
+
+def test_from_jax_params_rejects_unknown_kind(jtiny_params):
+    with pytest.raises(ValueError, match="unknown kind"):
+        from_jax_params(jtiny_params["vae"], "vae2")

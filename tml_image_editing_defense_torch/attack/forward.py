@@ -1,0 +1,68 @@
+"""The differentiable editing chain (port of ``attack/forward.py``).
+
+Noise-add, then K CFG UNet steps as a Python loop over the plan (reference
+``Trainer.attack_forward``, main.py:194-245).  Every random draw -- the
+pool noise and the per-step LCM noise -- is an argument.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import torch
+
+from tml_image_editing_defense_torch.core.samplers import BaseSampler, DenoisePlan
+from tml_image_editing_defense_torch.models.model_zoo import DiffusionModel
+
+
+@dataclass
+class CondInputs:
+    """CFG-ready conditioning for one forward: stacked [uncond; cond]."""
+
+    ctx: torch.Tensor                      # [2, S, D]
+
+
+def select_cond(bank_embeds: torch.Tensor, bank_uncond: torch.Tensor,
+                prompt_idx: int) -> CondInputs:
+    """Prompt row ``prompt_idx`` of the bank, stacked under the unconditional row."""
+    return CondInputs(ctx=torch.stack([bank_uncond, bank_embeds[prompt_idx]]))
+
+
+def denoise_chain(
+    model: DiffusionModel,
+    sampler: BaseSampler,
+    plan: DenoisePlan,
+    latents: torch.Tensor,             # [1, C, h, w], already noised to t0
+    cond: CondInputs,
+    guidance_scale: float,
+    step_noise: Optional[Sequence[torch.Tensor]],   # [K, C, h, w] (row i: step i's draw)
+) -> torch.Tensor:
+    """K CFG denoising steps (reference loop main.py:229-243)."""
+    x = latents
+    b = x.shape[0]
+    for i in range(plan.num_steps):
+        latent_in = sampler.scale_model_input(plan, i, torch.cat([x, x], dim=0))
+        eps = model.apply_unet(latent_in, int(plan.t_eval[i]), cond.ctx)
+        eps_uncond, eps_text = eps[:b], eps[b:]
+        guided = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+        noise = None if plan.is_last[i] else step_noise[i][None]
+        x = sampler.step(plan, i, guided, x, noise)
+    return x
+
+
+def attack_forward_from_latent(
+    model: DiffusionModel,
+    sampler: BaseSampler,
+    plan: DenoisePlan,
+    z_scaled: torch.Tensor,            # [1, C, h, w], scaled VAE latent
+    cond: CondInputs,
+    init_noise: torch.Tensor,          # [1, C, h, w], the selected pool entry
+    guidance_scale: float,
+    step_noise: Optional[Sequence[torch.Tensor]],
+) -> torch.Tensor:
+    """Post-encode tail of the chain: noise-add, K-step denoise, unscale
+    (main.py:194-245)."""
+    x = sampler.add_noise(plan, z_scaled, init_noise)
+    x = denoise_chain(model, sampler, plan, x, cond, guidance_scale, step_noise)
+    return x / model.vae_scaling

@@ -1,0 +1,206 @@
+"""Configuration: the immunization config and the prompt banks.
+
+Port of ``tml_image_editing_defense_tpu/configs.py`` (``TrainConfig`` and the
+prompt data).  Every field, default and the norm-conditional
+``__post_init__`` override (reference configs.py:152-159) are the same,
+except the knobs that shaped the TPU program and have no meaning here, which
+are dropped:
+
+- ``eot_mode`` ("scan" / "vmap" / "shard") and ``eot_chunk``: the reps run
+  one after another, which is the JAX "scan" with chunk 1;
+- ``eot_shards``: one device per run in this slice;
+- ``remat_policy``, ``remat_vae``, ``unroll_denoise``: PyTorch runs eagerly
+  and saves what autograd needs; the flash kernels already keep attention's
+  T x T tensors out of memory;
+- ``dispatch_block``: there is no compiled multi-iteration dispatch.
+
+``use_pallas_update`` keeps its name and now means "use the CUDA update
+kernel" (ops/pgd_kernels.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import List, Optional
+
+_TEXTURE_PROMPTS = (
+    "",
+    "melting",
+    "shattered",
+    "moldy",
+    "plush",
+    "futuristic",
+    "glowing",
+    "wet",
+    "marble",
+    "origami",
+    "hologram",
+    "made of glass",
+    "covered in moss",
+)
+
+_STYLE_PROMPTS = (
+    "painting",
+    "sketch",
+    "mosaic",
+    "oil painting",
+    "pencil drawing",
+    "charcoal drawing",
+    "pastel drawing",
+    "ink drawing",
+    "3d rendering",
+    "comic drawing",
+    "animation",
+    "anime",
+    "pixel art",
+    "concept art",
+    "minimalist art",
+    "in the style of picasso",
+    "in the style of van gogh",
+    "in the style of monet",
+    "wooden sculpture",
+    "street art stencil",
+    "chalk drawing",
+)
+
+_SCENE_PROMPTS = (
+    "underwater",
+    "on mars",
+    "in utopian world",
+    "in a desert",
+    "in a city",
+    "in an apocalypse",
+    "in a fantasy world",
+    "in a lightning storm",
+    "in a medieval setting",
+    "in a futuristic city",
+    "in a forest",
+    "in a jungle",
+    "in a mountain",
+    "on an alien planet",
+    "during a sunset",
+    "in an enchanted forest",
+)
+
+#: Training-time EOT prompt bank (50 entries, reference ``configs.py:7-60``).
+PROMPTS_LIST: List[str] = list(_TEXTURE_PROMPTS + _STYLE_PROMPTS + _SCENE_PROMPTS)
+
+#: Negative prompt bank (reference ``configs.py:83``; commented out at every
+#: call site in the reference, kept for parity).
+NEGATIVE_PROMPT: str = (
+    "(worst quality, low quality, blurry:1.3), (bad teeth, deformed teeth, "
+    "deformed lips), (bad anatomy, bad proportions:1.1), (deformed iris, "
+    "deformed pupils), (deformed eyes, bad eyes), (deformed face, ugly face, "
+    "bad face), (deformed hands, bad hands, fused fingers), morbid, mutilated, "
+    "mutation, disfigured"
+)
+
+
+def format_prompt(prompt: str, caption: str = "") -> str:
+    """Optional caption prefix + ``, detailed`` suffix (main.py:86-87)."""
+    if caption:
+        prompt = f"{caption} {prompt}"
+    return f"{prompt}, detailed"
+
+
+@dataclass
+class TrainConfig:
+    """Immunization (PGD attack) configuration (reference configs.py:86-159)."""
+
+    # --- paths / bookkeeping ---
+    source_image_path: Path = Path("data/images/japan.jpg")
+    target_image_path: Path = Path("data/images/stick-figure-sticker.jpg")
+    default_source_image_caption: str = ""
+    output_path: Path = Path("./output")
+    experiment_name: str = "experiment_l2_fixed_noise"
+
+    # --- optimization schedule ---
+    n_optimization_steps: int = 200
+    n_denoising_steps_per_iteration: int = 4
+    apply_loss_on_images: bool = True
+    apply_loss_on_latents: bool = False
+    limit_timesteps: bool = True          # drop denoise steps with t >= 700 (main.py:198-199)
+    rec_loss_lambda: float = 1.0
+    perturbation_loss_lambda: float = 1.0
+    seed: int = 42
+
+    # --- EOT distribution ---
+    prompts: List[str] = field(default_factory=lambda: list(PROMPTS_LIST))
+    #: CFG negative prompt shared by every EOT sample ("" is the reference's
+    #: behaviour; NEGATIVE_PROMPT is defined but unused there).
+    negative_prompt: str = ""
+
+    # --- PGD hyperparameters ---
+    norm_type: str = "l2"                 # "l2" | "linf"
+    eps: float = 0.1
+    step_size: float = 0.006
+    min_value: float = -1.0
+    max_value: float = 1.0
+    guidance_scale: float = 3.0
+    grad_reps: int = 5
+    eta: float = 0.9                      # DDIM eta; the LCM sampler ignores it
+
+    # --- behaviour toggles ---
+    add_image_caption_to_prompts: bool = False
+    use_segmentation_mask: bool = False
+    use_fixed_noise: bool = True
+    n_noise: int = 1
+    caption_model_path: Optional[str] = None
+    segmentation_model_path: Optional[str] = None
+
+    # --- visualization ---
+    image_visualization_interval: int = 25
+
+    # --- model selection ---
+    use_sdxl: bool = False
+    use_lcm: bool = True
+    image_size: int = 512
+    #: "sd15" | "tiny" in this slice; None derives from use_sdxl.
+    model_family: Optional[str] = None
+    #: "diffusion" (the reference's live path); "inpaint" is a later slice.
+    attack_mode: str = "diffusion"
+
+    # --- knobs without a reference equivalent ---
+    #: Replicate the reference's ``__post_init__`` override of
+    #: eps/step_size/grad_reps by norm type (configs.py:152-159).
+    derive_norm_hyperparams: bool = True
+    #: Compute dtype of the models ("float32" | "bfloat16").
+    dtype: str = "float32"
+    #: Use the CUDA L2 update kernel (ops/pgd_kernels.py) for the PGD step.
+    use_pallas_update: bool = True
+    #: Decode and render the visualization grid at vis intervals.
+    enable_visualization: bool = True
+    #: PGD-state checkpointing every N steps (0 = off; a later slice).
+    checkpoint_interval: int = 0
+    #: Converted real-weight checkpoint (None = random weights).
+    params_path: Optional[Path] = None
+    #: Local HF tokenizer directories (None = hash tokenizer).
+    tokenizer_paths: Optional[List[Optional[str]]] = None
+
+    def __post_init__(self):
+        self.source_image_path = Path(self.source_image_path)
+        self.target_image_path = Path(self.target_image_path)
+        self.output_path = Path(self.output_path)
+        if self.derive_norm_hyperparams:
+            # reference semantics: overridden unconditionally by norm type
+            if self.norm_type == "l2":
+                self.eps = 32.0
+                self.step_size = 7.5
+                self.grad_reps = 10
+            else:
+                self.eps = 0.1
+                self.step_size = 0.006
+                self.grad_reps = 5
+
+    @property
+    def latent_size(self) -> int:
+        return self.image_size // 8
+
+    def asdict(self) -> dict:
+        d = dataclasses.asdict(self)
+        for k, v in d.items():
+            if isinstance(v, Path):
+                d[k] = str(v)
+        return d

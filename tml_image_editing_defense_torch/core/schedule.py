@@ -1,0 +1,52 @@
+"""Diffusion noise schedule (port of ``core/schedule.py``).
+
+The cumulative-alpha table stays a host numpy array: every timestep on the
+attack's path is a host integer, so each lookup is a scalar, computed in
+f32 as the JAX program does, and the tensors only see python floats.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class NoiseSchedule:
+    """``alphas_cumprod``: [T] f32; ``final_alpha_cumprod``: alpha-bar for
+    "t < 0" (``alphas_cumprod[0]`` with set_alpha_to_one=False)."""
+
+    alphas_cumprod: np.ndarray
+    final_alpha_cumprod: np.float32
+    num_train_timesteps: int = 1000
+    prediction_type: str = "epsilon"
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor, t: int) -> torch.Tensor:
+        """q(x_t | x_0) = sqrt(abar_t) x0 + sqrt(1 - abar_t) eps (main.py:216)."""
+        abar = np.float32(self.alphas_cumprod[int(t)])
+        a = float(np.sqrt(abar))
+        b = float(np.sqrt(np.float32(1.0) - abar))
+        return a * sample + b * noise
+
+
+def make_noise_schedule(
+    num_train_timesteps: int = 1000,
+    beta_start: float = 0.00085,
+    beta_end: float = 0.012,
+    beta_schedule: str = "scaled_linear",
+    set_alpha_to_one: bool = False,
+    prediction_type: str = "epsilon",
+) -> NoiseSchedule:
+    """The Stable Diffusion table (scaled-linear betas, T=1000) by default."""
+    if beta_schedule == "scaled_linear":
+        betas = np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps,
+                            dtype=np.float64) ** 2
+    elif beta_schedule == "linear":
+        betas = np.linspace(beta_start, beta_end, num_train_timesteps, dtype=np.float64)
+    else:
+        raise ValueError(f"unknown beta_schedule {beta_schedule}")
+    alphas_cumprod = np.cumprod(1.0 - betas).astype(np.float32)
+    final = np.float32(1.0) if set_alpha_to_one else alphas_cumprod[0]
+    return NoiseSchedule(alphas_cumprod, np.float32(final), num_train_timesteps, prediction_type)

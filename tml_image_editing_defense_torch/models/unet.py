@@ -1,0 +1,161 @@
+"""UNet2DCondition, the SD-1.5 denoiser (port of ``models/unet.py``), NCHW.
+
+The SDXL ``text_time`` additional embedding comes with the SDXL slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from tml_image_editing_defense_torch.models.layers import (
+    Block,
+    Downsample,
+    ResnetBlock,
+    TimestepEmbedding,
+    Transformer2D,
+    Upsample,
+    timestep_embedding,
+)
+
+
+@dataclass(frozen=True)
+class UNetConfig:
+    """Architecture config (diffusers' field semantics; ``num_attention_heads``
+    is the number of heads)."""
+
+    sample_size: int = 64
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    #: True at index i: down block i is a CrossAttnDownBlock.
+    cross_attention_blocks: Tuple[bool, ...] = (True, True, True, False)
+    transformer_layers_per_block: Tuple[int, ...] = (1, 1, 1, 1)
+    num_attention_heads: Tuple[int, ...] = (8, 8, 8, 8)
+    cross_attention_dim: int = 768
+    use_linear_projection: bool = False
+    #: Long self-attention goes to the flash kernels when set (see
+    #: layers.scaled_attention); training builds pass 512.
+    attn_kv_chunk: Optional[int] = None
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+SD15_UNET = UNetConfig()
+
+#: Tiny preset for tests: the full code path in milliseconds on the CPU.
+TINY_UNET = UNetConfig(
+    sample_size=8,
+    block_out_channels=(32, 64),
+    layers_per_block=1,
+    cross_attention_blocks=(True, False),
+    transformer_layers_per_block=(1, 0),
+    num_attention_heads=(2, 2),
+    cross_attention_dim=32,
+)
+
+
+class UNet2DCondition(nn.Module):
+    def __init__(self, config: UNetConfig):
+        super().__init__()
+        cfg = self.config = config
+        boc = cfg.block_out_channels
+        n = len(boc)
+        temb = cfg.time_embed_dim
+        self.time_embedding = TimestepEmbedding(boc[0], temb)
+        self.conv_in = nn.Conv2d(cfg.in_channels, boc[0], 3, padding=1)
+
+        def transformer(ch, level):
+            heads = cfg.num_attention_heads[level]
+            return Transformer2D(ch, heads, ch // heads, cfg.cross_attention_dim,
+                                 depth=cfg.transformer_layers_per_block[level],
+                                 use_linear_projection=cfg.use_linear_projection,
+                                 kv_chunk=cfg.attn_kv_chunk)
+
+        skip_chs = [boc[0]]
+        ch = boc[0]
+        down = []
+        for i, out in enumerate(boc):
+            resnets, attns = [], []
+            for _ in range(cfg.layers_per_block):
+                resnets.append(ResnetBlock(ch, out, temb))
+                ch = out
+                if cfg.cross_attention_blocks[i]:
+                    attns.append(transformer(out, i))
+                skip_chs.append(out)
+            sampler = None
+            if i < n - 1:
+                sampler = Downsample(out, out)
+                skip_chs.append(out)
+            down.append(Block(resnets, attns, "downsamplers", sampler))
+        self.down_blocks = nn.ModuleList(down)
+
+        mid = boc[-1]
+        mid_attn = ([transformer(mid, n - 1)]
+                    if cfg.transformer_layers_per_block[-1] > 0 else None)
+        self.mid_block = Block([ResnetBlock(ch, mid, temb), ResnetBlock(mid, mid, temb)], mid_attn)
+        ch = mid
+
+        up = []
+        for i in range(n):
+            level = n - 1 - i
+            out = boc[level]
+            resnets, attns = [], []
+            for _ in range(cfg.layers_per_block + 1):
+                resnets.append(ResnetBlock(ch + skip_chs.pop(), out, temb))
+                ch = out
+                if cfg.cross_attention_blocks[level]:
+                    attns.append(transformer(out, level))
+            sampler = Upsample(out, out) if i < n - 1 else None
+            up.append(Block(resnets, attns, "upsamplers", sampler))
+        self.up_blocks = nn.ModuleList(up)
+
+        groups = 32 if boc[0] % 32 == 0 else boc[0] // 4
+        self.conv_norm_out = nn.GroupNorm(groups, boc[0], eps=1e-5)
+        self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor):
+        """``sample`` [B, C, h, w]; ``timesteps`` an int, a 0-d or a [B] tensor;
+        ``encoder_hidden_states`` [B, S, cross_dim]."""
+        b = sample.shape[0]
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(b)
+        dtype = self.conv_in.weight.dtype
+        emb = self.time_embedding(timestep_embedding(timesteps, self.config.block_out_channels[0])
+                                  .to(dtype))
+        ctx = encoder_hidden_states.to(dtype)
+        h = self.conv_in(sample.to(dtype))
+
+        skips = [h]
+        for block in self.down_blocks:
+            for j, resnet in enumerate(block.resnets):
+                h = resnet(h, emb)
+                if block.attentions is not None:
+                    h = block.attentions[j](h, ctx)
+                skips.append(h)
+            if block.sampler_name:
+                h = block.resample(h)
+                skips.append(h)
+
+        mb = self.mid_block
+        h = mb.resnets[0](h, emb)
+        if mb.attentions is not None:
+            h = mb.attentions[0](h, ctx)
+        h = mb.resnets[1](h, emb)
+
+        for block in self.up_blocks:
+            for j, resnet in enumerate(block.resnets):
+                h = resnet(torch.cat([h, skips.pop()], dim=1), emb)
+                if block.attentions is not None:
+                    h = block.attentions[j](h, ctx)
+            h = block.resample(h)
+
+        return self.conv_out(F.silu(self.conv_norm_out(h)))

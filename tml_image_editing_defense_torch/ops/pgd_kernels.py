@@ -1,0 +1,76 @@
+"""The fused L2 PGD update (kernel K4, ``csrc/pgd_update.cu``) and the
+dispatcher the attack uses.
+
+Counterpart of ``tml_image_editing_defense_tpu/ops/pgd_kernels.py``
+(``pgd_l2_update`` with ``_l2_kernel`` / ``_l2_masked_kernel``).  The CUDA
+kernel takes per-sample norms, so it serves any batch (the Pallas kernel
+took batch 1 only).  The L-inf branch runs the plain
+``linf_perturbation_step``: its kernel (the Pallas ``pgd_linf_update``) is
+not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from tml_image_editing_defense_torch.attack.pgd import (
+    l2_perturbation_step,
+    linf_perturbation_step,
+)
+from tml_image_editing_defense_torch.ops._lib import F, I, P, CudaKernel, require_cuda, stream_ptr
+
+PGD_L2_UPDATE = CudaKernel("tid_pgd_l2_update", [P, P, P, P, P, I, I, I, I, F, F, F, F, P])
+
+
+def pgd_l2_update(
+    x_adv: torch.Tensor,
+    grad: torch.Tensor,
+    x_src: torch.Tensor,
+    step_size: float,
+    eps: float,
+    min_value: float,
+    max_value: float,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Fused L2 PGD update of NCHW images, one launch (reference main.py:254-268).
+
+    ``mask`` ([B, 1, H, W]) scales the normalised gradient, broadcast over
+    channels.  The plain ``l2_perturbation_step`` runs for CPU tensors."""
+    if x_adv.device.type == "cpu":
+        return l2_perturbation_step(x_adv, grad, x_src, step_size, eps, min_value, max_value,
+                                    mask)
+    require_cuda("pgd_l2_update", x_adv, grad, x_src)
+    if x_adv.dim() != 4 or grad.shape != x_adv.shape or x_src.shape != x_adv.shape:
+        raise ValueError(f"pgd_l2_update: x_adv, grad and x_src must share one [B,C,H,W] "
+                         f"shape, got {tuple(x_adv.shape)}, {tuple(grad.shape)}, "
+                         f"{tuple(x_src.shape)}")
+    b, c, h, w = x_adv.shape
+    mask_ptr = None
+    if mask is not None:
+        if tuple(mask.shape) != (b, 1, h, w) or mask.device != x_adv.device:
+            raise ValueError(f"pgd_l2_update: mask must be [{b}, 1, {h}, {w}] on "
+                             f"{x_adv.device}, got {tuple(mask.shape)} on {mask.device}")
+        mask = mask.to(torch.float32).contiguous()
+        mask_ptr = mask.data_ptr()
+    out = torch.empty_like(x_adv)
+    PGD_L2_UPDATE(x_adv.data_ptr(), grad.data_ptr(), x_src.data_ptr(), mask_ptr,
+                  out.data_ptr(), b, c * h * w, h * w, int(x_adv.dtype == torch.bfloat16),
+                  float(step_size), float(eps), float(min_value), float(max_value),
+                  stream_ptr(x_adv))
+    return out
+
+
+def fused_perturbation_step(norm_type: str, **kw) -> torch.Tensor:
+    """Kernel-backed counterpart of :func:`attack.pgd.perturbation_step`;
+    the mask applies on the L2 branch only (main.py:260-261 vs 270-274)."""
+    if norm_type == "l2":
+        return pgd_l2_update(**kw)
+    if norm_type == "linf":
+        kw.pop("mask", None)
+        return linf_perturbation_step(**kw)
+    raise ValueError(f"unknown norm_type {norm_type!r}")
+
+
+KERNELS = (PGD_L2_UPDATE,)
