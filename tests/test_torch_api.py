@@ -16,6 +16,9 @@ from tml_image_editing_defense_tpu.core.rng import load_noise_pool as j_load_noi
 from tml_image_editing_defense_torch import api
 from tml_image_editing_defense_torch.configs import TrainConfig
 from tml_image_editing_defense_torch.core.image_ops import load_image
+from test_torch_models import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def _images(tmp_path, size=40):
@@ -106,7 +109,6 @@ def test_immunize_without_a_device_raises_where_cuda_is_absent(tmp_path):
     {"checkpoint_interval": 5},
     {"use_segmentation_mask": True},
     {"add_image_caption_to_prompts": True},
-    {"attack_mode": "inpaint"},
     {"use_sdxl": True, "model_family": None},
 ])
 def test_later_slices_raise_not_implemented(tmp_path, kw):

@@ -43,16 +43,37 @@ def test_from_jax_params_equals_export_state_dict(jtiny_params, part, kind):
         np.testing.assert_array_equal(got[key].numpy(), arr, err_msg=key)
 
 
-@pytest.mark.parametrize("part,name", [("unet", "sd15_unet"), ("vae", "sd15_vae"),
-                                        ("text", "sd15_text")])
-def test_sd15_modules_match_checkpoint_manifest(part, name):
-    model = build_model("sd15", device="meta")
+def _assert_matches_manifest(family, part, name):
+    model = build_model(family, device="meta")
     module = model.text_models[0] if part == "text" else getattr(model, part)
     got = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     want = {k: tuple(v) for k, v in json.loads((MANIFESTS / f"{name}.json").read_text()).items()}
     assert sorted(set(want) - set(got)) == []
     assert sorted(set(got) - set(want)) == []
     assert {k: (got[k], want[k]) for k in want if got[k] != want[k]} == {}
+
+
+@pytest.mark.parametrize("part,name", [("unet", "sd15_unet"), ("vae", "sd15_vae"),
+                                        ("text", "sd15_text")])
+def test_sd15_modules_match_checkpoint_manifest(part, name):
+    _assert_matches_manifest("sd15", part, name)
+
+
+def test_sd15_inpaint_unet_matches_checkpoint_manifest():
+    _assert_matches_manifest("sd15-inpaint", "unet", "sd15_inpaint_unet")
+
+
+def test_from_jax_params_carries_the_9_channel_conv_in():
+    """The tiny-inpaint UNet's weights load into the port's 9-channel UNet."""
+    m = jax_build_model("tiny-inpaint", key=jax.random.key(1), image_size=32, fast_init=True)
+    params = jax.device_get(m.params["unet"])
+    sd = from_jax_params(params, "unet")
+    assert tuple(sd["conv_in.weight"].shape) == (32, 9, 3, 3)
+    np.testing.assert_array_equal(sd["conv_in.weight"].numpy(),
+                                  np.asarray(params["conv_in"]["kernel"]).transpose(3, 2, 0, 1))
+    unet = build_model("tiny-inpaint", device="cpu").unet
+    unet.load_state_dict(sd)
+    assert torch.equal(unet.conv_in.weight, sd["conv_in.weight"])
 
 
 def test_from_jax_params_rejects_unknown_kind(jtiny_params):

@@ -33,6 +33,20 @@ from tml_image_editing_defense_torch.models.vae import TINY_VAE, AutoencoderKL
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's tests on one torch thread.  The tiny models' ops are
+    too small to gain from more, and under the suite's parallel workers
+    eight OpenMP threads per process contend for the cores, which made
+    each small op wait on the scheduler."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 def nchw(x_nhwc) -> torch.Tensor:
     """NHWC (JAX layout) array -> NCHW torch tensor."""
@@ -47,9 +61,11 @@ def nhwc(x_nchw: torch.Tensor) -> np.ndarray:
     return a.transpose((0,) + tuple(range(2, a.ndim)) + (1,))
 
 
-def port_model_from_jax(jmodel, attn_kv_chunk=None):
-    """A CPU port bundle of ``jmodel``'s family carrying its weights."""
-    pm = build_model(jmodel.family, image_size=jmodel.image_size, device="cpu",
+def port_model_from_jax(jmodel, attn_kv_chunk=None, family=None):
+    """A CPU port bundle of ``jmodel``'s family carrying its weights
+    (``family`` names it where the JAX bundle keeps only its base family,
+    as for ``tiny-inpaint``)."""
+    pm = build_model(family or jmodel.family, image_size=jmodel.image_size, device="cpu",
                      attn_kv_chunk=attn_kv_chunk)
     params = jax.device_get(jmodel.params)
     pm.unet.load_state_dict(from_jax_params(params["unet"], "unet"))

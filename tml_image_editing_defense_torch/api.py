@@ -1,8 +1,10 @@
 """Top-level API of the port: :func:`immunize` (port of ``api.immunize``,
 reference ``Trainer.run``, main.py:47-142).
 
-This slice covers ``attack_mode="diffusion"`` on one device.  It writes the
-reference's artifacts: ``adversarial_image.png`` (the uint8 round-trip is
+It covers ``attack_mode="diffusion"`` (the reference's live path) and
+``attack_mode="inpaint"`` (PhotoGuard's attack on the 9-channel inpaint
+UNet, attack/inpaint.py) on one device.  Both write the reference's
+artifacts: ``adversarial_image.png`` (the uint8 round-trip is
 part of the measured defense, main.py:618-621), ``noise.npz`` (in the JAX
 package's layout, so its ``evaluate`` can read it) and ``metrics.jsonl``.
 """
@@ -16,6 +18,10 @@ from typing import Optional, Union
 import torch
 from PIL import Image
 
+from tml_image_editing_defense_torch.attack.inpaint import (
+    make_inpaint_pgd_step,
+    sample_inpaint_draws,
+)
 from tml_image_editing_defense_torch.attack.pgd import make_attack_data, run_pgd
 from tml_image_editing_defense_torch.configs import TrainConfig, format_prompt
 from tml_image_editing_defense_torch.core import image_ops
@@ -39,6 +45,14 @@ class ImmunizeResult:
 def _default_family(cfg: TrainConfig) -> str:
     if cfg.model_family:
         return cfg.model_family
+    if cfg.attack_mode == "inpaint":
+        # PhotoGuard's attack targets the 9-channel SD-1.5 inpaint UNet
+        # (old/yuval_playground.py:331-340); there is no SDXL inpaint family
+        if cfg.use_sdxl:
+            raise ValueError("attack_mode='inpaint' has no SDXL variant (the reference's "
+                             "inpaint attack is SD-1.5 only); unset use_sdxl or pick "
+                             "model_family explicitly")
+        return "sd15-inpaint"
     if cfg.use_sdxl:
         raise NotImplementedError("SDXL comes with the SDXL slice of the port")
     return "sd15"
@@ -60,9 +74,7 @@ _LATER = {
 
 
 def _check_supported(cfg: TrainConfig, resume_from) -> None:
-    if cfg.attack_mode == "inpaint":
-        raise NotImplementedError("attack_mode='inpaint' comes with the inpaint slice of the port")
-    if cfg.attack_mode != "diffusion":
+    if cfg.attack_mode not in ("diffusion", "inpaint"):
         raise ValueError(f"unknown attack_mode {cfg.attack_mode!r}")
     if resume_from is not None:
         raise NotImplementedError("resume_from comes with the checkpoint/resume slice of the port")
@@ -93,6 +105,15 @@ def immunize(
         model = build_model(_default_family(cfg), image_size=cfg.image_size, device=device,
                             dtype=dtype, generator=setup,
                             attn_kv_chunk=_train_attn_chunk(cfg.image_size))
+    is_inpaint = cfg.attack_mode == "inpaint"
+    in_ch = model.unet.config.in_channels
+    if is_inpaint and in_ch != 9:
+        raise ValueError(f"attack_mode='inpaint' needs a 9-channel inpaint UNet family "
+                         f"(sd15-inpaint / tiny-inpaint); model_family={model.family!r} has "
+                         f"in_channels={in_ch}")
+    if not is_inpaint and in_ch == 9:
+        raise ValueError(f"model_family={model.family!r} is an inpaint UNet; set "
+                         "attack_mode='inpaint' to drive it")
 
     def load(path):
         arr = image_ops.load_image(path, cfg.image_size)
@@ -109,13 +130,25 @@ def immunize(
     target_eps = torch.randn(lat_shape, generator=setup, device=device, dtype=dtype)
 
     sampler = make_sampler("lcm", model.schedule)
-    plan = sampler.plan(cfg.n_denoising_steps_per_iteration,
-                        limit_t=700 if cfg.limit_timesteps else None)
+    if is_inpaint:
+        # the legacy window 100 < t < 800 (old/yuval_playground.py:106)
+        plan = sampler.plan(cfg.n_denoising_steps_per_iteration, limit_t=800, min_t=101)
+    else:
+        plan = sampler.plan(cfg.n_denoising_steps_per_iteration,
+                            limit_t=700 if cfg.limit_timesteps else None)
     if plan.num_steps == 0:
         raise ValueError("empty denoising plan: limit_timesteps filtered out every step "
                          f"(K={cfg.n_denoising_steps_per_iteration})")
     data = make_attack_data(model, cfg, source, target, bank, noise_pool,
                             target_latent_eps=target_eps)
+
+    step_fn = draw_sampler = None
+    if is_inpaint:
+        step_fn = make_inpaint_pgd_step(model, sampler, plan, cfg)
+
+        def draw_sampler(gen):
+            return sample_inpaint_draws(gen, cfg, len(cfg.prompts), lat_shape, plan.num_steps,
+                                        dtype)
 
     logged_steps = set()
 
@@ -139,7 +172,8 @@ def immunize(
     try:
         x_adv, history = run_pgd(model, sampler, plan, cfg, data, cfg.seed,
                                  vis_callback=vis_callback,
-                                 vis_needs_image=cfg.enable_visualization)
+                                 vis_needs_image=cfg.enable_visualization,
+                                 step_fn=step_fn, draw_sampler=draw_sampler)
         # one scalar row per iteration (main.py:105-107); vis rows were written live
         logger.log_history(history, skip=logged_steps)
 

@@ -37,12 +37,17 @@ def denoise_chain(
     cond: CondInputs,
     guidance_scale: float,
     step_noise: Optional[Sequence[torch.Tensor]],   # [K, C, h, w] (row i: step i's draw)
+    extra_channels: Optional[torch.Tensor] = None,  # [2B, C', h, w], appended to the input
 ) -> torch.Tensor:
-    """K CFG denoising steps (reference loop main.py:229-243)."""
+    """K CFG denoising steps (reference loop main.py:229-243).
+    ``extra_channels`` are concatenated after the scaled latent on every
+    step: the inpaint UNet's mask and masked-image latent."""
     x = latents
     b = x.shape[0]
     for i in range(plan.num_steps):
         latent_in = sampler.scale_model_input(plan, i, torch.cat([x, x], dim=0))
+        if extra_channels is not None:
+            latent_in = torch.cat([latent_in, extra_channels], dim=1)
         eps = model.apply_unet(latent_in, int(plan.t_eval[i]), cond.ctx)
         eps_uncond, eps_text = eps[:b], eps[b:]
         guided = eps_uncond + guidance_scale * (eps_text - eps_uncond)

@@ -5,8 +5,11 @@
 - :func:`make_eot_grad`: the ``grad_reps`` expectation over transformations
   (main.py:88-102) with the VAE encode run once and its backward applied once
   to the rep-averaged posterior gradient, as the JAX version does.
+- :func:`_rep_loss_fn`: the per-rep loss that encodes the image itself, as
+  the reference does every rep (main.py:191); the legacy loops use it.
 - :func:`make_pgd_step` and :func:`run_pgd`: one outer iteration, and the
-  host loop with visualization callbacks.
+  host loop with visualization callbacks, which drives any step of that
+  contract (the inpaint step of attack/inpaint.py too).
 
 Randomness is explicit.  A step takes an :class:`EOTDraws` (prompt index,
 pool indices, VAE posterior noise, LCM step noise); :func:`sample_draws`
@@ -154,22 +157,36 @@ Index = Union[int, torch.Tensor]
 class EOTDraws:
     """Every random number one PGD iteration uses."""
 
-    prompt_idx: Index                   # row of the prompt bank (main.py:85)
+    #: row of the prompt bank (main.py:85), or one row per rep where the
+    #: prompt is drawn per rep (the legacy loops and the inpaint attack)
+    prompt_idx: Union[Index, Sequence[Index]]
     pool_idx: Sequence[Index]           # [R] noise-pool entry per rep (main.py:215)
     vae_eps: torch.Tensor               # [R, C, h, w] posterior noise per rep
     step_noise: torch.Tensor            # [R, K, C, h, w] LCM step noise per rep
     #: [R, C, h, w] fresh init noise per rep, when cfg.use_fixed_noise is False
+    #: (the inpaint attack's fresh initial latents)
     init_noise: Optional[torch.Tensor] = None
+
+    def rep_prompt(self, r: int) -> Index:
+        """The prompt row rep ``r`` uses."""
+        if isinstance(self.prompt_idx, (list, tuple)):
+            return self.prompt_idx[r]
+        return self.prompt_idx
 
 
 def sample_draws(generator: torch.Generator, cfg: TrainConfig, n_prompts: int, n_pool: int,
-                 latent_shape: Sequence[int], n_steps: int, dtype=torch.float32) -> EOTDraws:
+                 latent_shape: Sequence[int], n_steps: int, dtype=torch.float32,
+                 prompt_per_rep: bool = False) -> EOTDraws:
     """Draw one iteration's randomness on the generator's device, in a fixed
-    order: prompt, pool indices, posterior noise, step noise, init noise."""
+    order: prompt (one, or one per rep), pool indices, posterior noise, step
+    noise, init noise."""
     dev = generator.device
     r = cfg.grad_reps
     c_hw = tuple(latent_shape[1:])
-    prompt_idx = torch.randint(0, n_prompts, (), generator=generator, device=dev)
+    prompt_idx = torch.randint(0, n_prompts, (r,) if prompt_per_rep else (), generator=generator,
+                               device=dev)
+    if prompt_per_rep:
+        prompt_idx = list(prompt_idx.unbind(0))
     pool_idx = torch.randint(0, n_pool, (r,), generator=generator, device=dev)
     vae_eps = torch.randn((r, *c_hw), generator=generator, device=dev, dtype=dtype)
     step_noise = torch.randn((r, n_steps, *c_hw), generator=generator, device=dev, dtype=dtype)
@@ -203,7 +220,7 @@ def _rep_loss_from_dist(model: DiffusionModel, sampler: BaseSampler, plan: Denoi
             noise = draws.init_noise[r][None]
         else:
             noise = data.noise_pool[draws.pool_idx[r]]
-        cond = select_cond(data.bank_embeds, data.bank_uncond, draws.prompt_idx)
+        cond = select_cond(data.bank_embeds, data.bank_uncond, draws.rep_prompt(r))
         z = sample_latent(mean, logvar, draws.vae_eps[r][None]) * model.vae_scaling
         out_latent = attack_forward_from_latent(
             model, sampler, plan, z, cond, noise, cfg.guidance_scale, draws.step_noise[r])
@@ -223,6 +240,39 @@ def _rep_loss_from_dist(model: DiffusionModel, sampler: BaseSampler, plan: Denoi
         return loss, rec, pert, out_latent
 
     return loss_fn
+
+
+def _rep_loss_fn(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
+                 cfg: TrainConfig):
+    """One EOT sample's loss as a function of the image: the encode runs
+    inside, once per rep (reference compute_grad, main.py:144-177; JAX
+    pgd.py:160-208).  ``loss_fn(x_adv, data, draws, r) -> (loss, rec, pert,
+    out_latent)``."""
+    from_dist = _rep_loss_from_dist(model, sampler, plan, cfg)
+
+    def loss_fn(x_adv, data: AttackData, draws: EOTDraws, r: int):
+        mean, logvar = model.vae.encode(x_adv)
+        return from_dist(mean, logvar, data, draws, r)
+
+    return loss_fn
+
+
+def rep_grad_mean(rep_loss: Callable, x_adv: torch.Tensor, reps: int):
+    """The mean over ``reps`` of d loss_r / d x at ``x_adv``, one rep at a
+    time, each rep's graph freed before the next is built (the legacy loops
+    and the inpaint attack, whose reps each encode the image).
+    ``rep_loss(x, r) -> (loss, *outputs)``; returns (grad, mean loss, the last
+    rep's outputs detached)."""
+    gsum = torch.zeros_like(x_adv)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x_adv.device)
+    with torch.enable_grad():
+        for r in range(reps):
+            x = x_adv.detach().requires_grad_(True)
+            loss, *outputs = rep_loss(x, r)
+            (g,) = torch.autograd.grad(loss, [x])
+            gsum += g
+            loss_sum += loss.detach()
+    return gsum / reps, loss_sum / reps, [t.detach() for t in outputs]
 
 
 def make_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
@@ -306,22 +356,31 @@ def run_pgd(
     seed: int,
     vis_callback: Optional[Callable] = None,
     vis_needs_image: bool = True,
+    step_fn: Optional[Callable] = None,
+    draw_sampler: Optional[Callable[[torch.Generator], EOTDraws]] = None,
 ) -> Tuple[torch.Tensor, list]:
     """Host-driven PGD loop from the source image (reference main.py:79-135).
 
+    ``step_fn(x_adv, data, draws) -> (x_adv', aux)`` is the iteration
+    (default: :func:`make_pgd_step` without the vis decode);
+    ``draw_sampler(generator) -> EOTDraws`` draws its randomness from the
+    iteration's generator (default: :func:`sample_draws`).
     ``vis_callback(it, x_adv, aux)`` fires at every
     ``cfg.image_visualization_interval``-th iteration and at the last one;
-    the vis image is decoded only there, when ``vis_needs_image``.  Loss
-    scalars stay on the device until the loop ends; the returned history has
-    one ``{avg_loss, rec_loss, pert_loss}`` entry per iteration."""
-    step = make_pgd_step(model, sampler, plan, cfg, decode_vis=False)
+    the vis image is decoded from ``aux["output_latent"]`` only there, when
+    ``vis_needs_image``.  Loss scalars stay on the device until the loop
+    ends; the returned history has one ``{avg_loss, rec_loss, pert_loss}``
+    entry per iteration."""
+    step = step_fn or make_pgd_step(model, sampler, plan, cfg, decode_vis=False)
+    if draw_sampler is None:
+        def draw_sampler(gen):
+            return sample_draws(gen, cfg, data.bank_embeds.shape[0], data.noise_pool.shape[0],
+                                data.noise_pool.shape[1:], plan.num_steps, data.source.dtype)
     x_adv = data.source
     n, interval = cfg.n_optimization_steps, cfg.image_visualization_interval
     pending = []
     for it in range(n):
-        gen = iteration_generator(seed, it, data.source.device)
-        draws = sample_draws(gen, cfg, data.bank_embeds.shape[0], data.noise_pool.shape[0],
-                             data.noise_pool.shape[1:], plan.num_steps, data.source.dtype)
+        draws = draw_sampler(iteration_generator(seed, it, data.source.device))
         x_adv, aux = step(x_adv, data, draws)
         pending.append(torch.stack([aux[k].float() for k in SCALAR_KEYS]))
         if vis_callback is not None and (it % interval == 0 or it == n - 1):

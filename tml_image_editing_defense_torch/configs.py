@@ -15,7 +15,7 @@ are dropped:
 - ``dispatch_block``: there is no compiled multi-iteration dispatch.
 
 ``use_pallas_update`` keeps its name and now means "use the CUDA update
-kernel" (ops/pgd_kernels.py).
+kernels" (K4 for L2, K5 for L-inf; ops/pgd_kernels.py).
 """
 
 from __future__ import annotations
@@ -157,9 +157,11 @@ class TrainConfig:
     use_sdxl: bool = False
     use_lcm: bool = True
     image_size: int = 512
-    #: "sd15" | "tiny" in this slice; None derives from use_sdxl.
+    #: "sd15" | "sd15-inpaint" | "tiny" | "tiny-inpaint"; None derives from
+    #: attack_mode (and use_sdxl).
     model_family: Optional[str] = None
-    #: "diffusion" (the reference's live path); "inpaint" is a later slice.
+    #: "diffusion" (the reference's live path) | "inpaint" (PhotoGuard's
+    #: attack on the 9-channel inpaint UNet, attack/inpaint.py).
     attack_mode: str = "diffusion"
 
     # --- knobs without a reference equivalent ---
@@ -168,7 +170,7 @@ class TrainConfig:
     derive_norm_hyperparams: bool = True
     #: Compute dtype of the models ("float32" | "bfloat16").
     dtype: str = "float32"
-    #: Use the CUDA L2 update kernel (ops/pgd_kernels.py) for the PGD step.
+    #: Use the CUDA update kernels (ops/pgd_kernels.py) for the PGD step.
     use_pallas_update: bool = True
     #: Decode and render the visualization grid at vis intervals.
     enable_visualization: bool = True

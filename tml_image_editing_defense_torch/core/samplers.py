@@ -1,5 +1,5 @@
 """Denoising samplers as host-side step tables (port of ``core/samplers.py``,
-LCM only in this slice; DDIM, PLMS and Euler come with evaluation).
+LCM only so far; DDIM, PLMS and Euler come with evaluation).
 
 A :class:`DenoisePlan` is a table of per-step scalars computed on the host;
 ``step`` is a torch function of one step that takes its step noise as an
@@ -63,9 +63,12 @@ class BaseSampler:
     def __init__(self, schedule: NoiseSchedule):
         self.schedule = schedule
 
-    def plan(self, num_inference_steps: int, limit_t: Optional[int] = None) -> DenoisePlan:
-        """``limit_t`` drops steps with t >= limit_t (main.py:198-199).  The
-        img2img ``strength`` and the ``min_t`` floor come with evaluation."""
+    def plan(self, num_inference_steps: int, limit_t: Optional[int] = None,
+             min_t: Optional[int] = None) -> DenoisePlan:
+        """``limit_t`` drops steps with t >= limit_t (main.py:198-199);
+        ``min_t`` drops steps with t < min_t (the inpaint attack's
+        ``100 < t < 800`` window is ``limit_t=800, min_t=101``).  The img2img
+        ``strength`` comes with evaluation."""
         raise NotImplementedError
 
     def add_noise(self, plan: DenoisePlan, x0: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -94,7 +97,7 @@ class LCMSampler(BaseSampler):
         self.timestep_scaling = timestep_scaling
         self.sigma_data = sigma_data
 
-    def plan(self, num_inference_steps, limit_t=None) -> DenoisePlan:
+    def plan(self, num_inference_steps, limit_t=None, min_t=None) -> DenoisePlan:
         t_train = self.schedule.num_train_timesteps
         c = t_train // self.original_inference_steps
         origin = (np.arange(1, self.original_inference_steps + 1) * c - 1)[::-1].copy()
@@ -108,6 +111,8 @@ class LCMSampler(BaseSampler):
         ts = origin[::skipping][:num_inference_steps].astype(np.int64)
         if limit_t is not None:
             ts = ts[ts < limit_t]
+        if min_t is not None:
+            ts = ts[ts >= min_t]
         t_prev = np.concatenate([ts[1:], ts[-1:]]) if len(ts) else ts
         return _pack(self.kind, self.schedule, ts, ts, t_prev)
 

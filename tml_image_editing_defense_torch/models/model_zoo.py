@@ -1,5 +1,6 @@
-"""Model bundles for SD-1.5 and the tiny test preset (port of
-``models/model_zoo.py``; SDXL and inpaint families come in later slices).
+"""Model bundles for SD-1.5, the 9-channel SD-1.5 inpainting UNet and their
+tiny test presets (port of ``models/model_zoo.py``; the SDXL families come
+in a later slice).
 
 :func:`build_model` builds the three networks on the target device with
 random weights made there from a ``torch.Generator``: fan-in-scaled normals
@@ -21,7 +22,13 @@ import torch.nn as nn
 from tml_image_editing_defense_torch.core.schedule import NoiseSchedule, make_noise_schedule
 from tml_image_editing_defense_torch.models.clip_text import SD15_TEXT, TINY_TEXT, CLIPTextModel
 from tml_image_editing_defense_torch.models.tokenizer import HashTokenizer
-from tml_image_editing_defense_torch.models.unet import SD15_UNET, TINY_UNET, UNet2DCondition
+from tml_image_editing_defense_torch.models.unet import (
+    SD15_INPAINT_UNET,
+    SD15_UNET,
+    TINY_INPAINT_UNET,
+    TINY_UNET,
+    UNet2DCondition,
+)
 from tml_image_editing_defense_torch.models.vae import SD_VAE, TINY_VAE, AutoencoderKL, sample_latent
 from tml_image_editing_defense_torch.utils.device import resolve_device, set_numerics
 
@@ -61,6 +68,11 @@ class DiffusionModel:
     def apply_unet(self, sample, t, ctx):
         return self.unet(sample, t, ctx)
 
+    def encode_image(self, image, eps: Optional[torch.Tensor] = None):
+        """Scaled latent (main.py:191): the posterior draw with the caller's
+        standard-normal ``eps``, or the posterior mean when it is None."""
+        return self.encode_image_raw(image, eps) * self.vae_scaling
+
     def encode_image_raw(self, image, eps: Optional[torch.Tensor] = None):
         """Unscaled latent (the reference's target encoding, main.py:75)."""
         mean, logvar = self.vae.encode(image)
@@ -86,7 +98,9 @@ class DiffusionModel:
 _FAMILIES = {
     # family: (unet_cfg, vae_cfg, text_cfg, native image size)
     "sd15": (SD15_UNET, SD_VAE, SD15_TEXT, 512),
+    "sd15-inpaint": (SD15_INPAINT_UNET, SD_VAE, SD15_TEXT, 512),
     "tiny": (TINY_UNET, TINY_VAE, TINY_TEXT, 32),
+    "tiny-inpaint": (TINY_INPAINT_UNET, TINY_VAE, TINY_TEXT, 32),
 }
 
 

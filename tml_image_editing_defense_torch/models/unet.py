@@ -5,6 +5,7 @@ The SDXL ``text_time`` additional embedding comes with the SDXL slice.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -50,6 +51,10 @@ class UNetConfig:
 
 SD15_UNET = UNetConfig()
 
+#: SD-1.5 inpainting UNet: 9 input channels (noisy latent, mask, masked-image
+#: latent), otherwise SD-1.5.
+SD15_INPAINT_UNET = UNetConfig(in_channels=9)
+
 #: Tiny preset for tests: the full code path in milliseconds on the CPU.
 TINY_UNET = UNetConfig(
     sample_size=8,
@@ -60,6 +65,8 @@ TINY_UNET = UNetConfig(
     num_attention_heads=(2, 2),
     cross_attention_dim=32,
 )
+
+TINY_INPAINT_UNET = dataclasses.replace(TINY_UNET, in_channels=9)
 
 
 class UNet2DCondition(nn.Module):

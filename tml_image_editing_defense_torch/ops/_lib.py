@@ -100,7 +100,7 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 class CudaKernel:

@@ -1,12 +1,12 @@
-"""The fused L2 PGD update (kernel K4, ``csrc/pgd_update.cu``) and the
-dispatcher the attack uses.
+"""The fused PGD updates, L2 (kernel K4) and L-inf (kernel K5), both in
+``csrc/pgd_update.cu``, and the dispatcher the attack uses.
 
 Counterpart of ``tml_image_editing_defense_tpu/ops/pgd_kernels.py``
-(``pgd_l2_update`` with ``_l2_kernel`` / ``_l2_masked_kernel``).  The CUDA
-kernel takes per-sample norms, so it serves any batch (the Pallas kernel
-took batch 1 only).  The L-inf branch runs the plain
-``linf_perturbation_step``: its kernel (the Pallas ``pgd_linf_update``) is
-not ported yet.
+(``pgd_l2_update`` with ``_l2_kernel`` / ``_l2_masked_kernel``, and
+``pgd_linf_update`` with ``_linf_kernel``).  K4 takes per-sample norms, so
+it serves any batch (the Pallas kernel took batch 1 only); K5 is
+elementwise over any shape.  Each wrapper runs the plain version only for
+CPU tensors; for CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -19,9 +19,18 @@ from tml_image_editing_defense_torch.attack.pgd import (
     l2_perturbation_step,
     linf_perturbation_step,
 )
-from tml_image_editing_defense_torch.ops._lib import F, I, P, CudaKernel, require_cuda, stream_ptr
+from tml_image_editing_defense_torch.ops._lib import (
+    F,
+    I,
+    L,
+    P,
+    CudaKernel,
+    require_cuda,
+    stream_ptr,
+)
 
 PGD_L2_UPDATE = CudaKernel("tid_pgd_l2_update", [P, P, P, P, P, I, I, I, I, F, F, F, F, P])
+PGD_LINF_UPDATE = CudaKernel("tid_pgd_linf_update", [P, P, P, P, L, I, F, F, F, F, P])
 
 
 def pgd_l2_update(
@@ -62,6 +71,32 @@ def pgd_l2_update(
     return out
 
 
+def pgd_linf_update(
+    x_adv: torch.Tensor,
+    grad: torch.Tensor,
+    x_src: torch.Tensor,
+    step_size: float,
+    eps: float,
+    min_value: float,
+    max_value: float,
+) -> torch.Tensor:
+    """Fused L-inf PGD update, one launch (reference main.py:270-274):
+    sign step, box projection onto [src - eps, src + eps], clamp.  Any shape;
+    f32 or bf16.  The plain ``linf_perturbation_step`` runs for CPU tensors."""
+    if x_adv.device.type == "cpu":
+        return linf_perturbation_step(x_adv, grad, x_src, step_size, eps, min_value, max_value)
+    require_cuda("pgd_linf_update", x_adv, grad, x_src)
+    if grad.shape != x_adv.shape or x_src.shape != x_adv.shape:
+        raise ValueError(f"pgd_linf_update: x_adv, grad and x_src must share one shape, got "
+                         f"{tuple(x_adv.shape)}, {tuple(grad.shape)}, {tuple(x_src.shape)}")
+    out = torch.empty_like(x_adv)
+    if out.numel():
+        PGD_LINF_UPDATE(x_adv.data_ptr(), grad.data_ptr(), x_src.data_ptr(), out.data_ptr(),
+                        x_adv.numel(), int(x_adv.dtype == torch.bfloat16), float(step_size),
+                        float(eps), float(min_value), float(max_value), stream_ptr(x_adv))
+    return out
+
+
 def fused_perturbation_step(norm_type: str, **kw) -> torch.Tensor:
     """Kernel-backed counterpart of :func:`attack.pgd.perturbation_step`;
     the mask applies on the L2 branch only (main.py:260-261 vs 270-274)."""
@@ -69,8 +104,8 @@ def fused_perturbation_step(norm_type: str, **kw) -> torch.Tensor:
         return pgd_l2_update(**kw)
     if norm_type == "linf":
         kw.pop("mask", None)
-        return linf_perturbation_step(**kw)
+        return pgd_linf_update(**kw)
     raise ValueError(f"unknown norm_type {norm_type!r}")
 
 
-KERNELS = (PGD_L2_UPDATE,)
+KERNELS = (PGD_L2_UPDATE, PGD_LINF_UPDATE)
