@@ -15,13 +15,16 @@ Phases, each fatal on failure:
    main paths' shapes -- flash attention K1 (forward), K2 (dK, dV), K3 (dQ)
    at [2, 4096, 8, 40] (UNet 64x64 level) and [1, 4096, 1, 512] (VAE
    mid-block) in f32 and bf16, and at [8, 4096, 1, 512] (the encoder
-   attack's batched VAE mid-block) in f32; the L2 PGD update K4 at
-   [1, 3, 512, 512] with and without a 0/1 mask; the L-inf PGD update K5 at
-   [1, 3, 512, 512] and [8, 3, 512, 512] in f32 (bit-equal) and bf16
-   (within 4e-3), at a ragged size and on a misaligned view -- with each
-   one's time, the plain version's, a single PyTorch call's where one
-   computes the same function, and the least time the card could take (the
-   bound);
+   attack's batched VAE mid-block) in f32; K1-K3 at ragged T (70..1000)
+   at every compiled head dim (40, 64, 80, 512: every tile plan of K2/K3)
+   in f32 and bf16, and K2/K3's refusal of a misaligned tensor; the L2 PGD
+   update K4 at [1, 3, 512, 512] with and without a 0/1 mask; the L-inf PGD
+   update K5 at [1, 3, 512, 512] and [8, 3, 512, 512] in f32 (bit-equal)
+   and bf16 (within 4e-3), at a ragged size and on a misaligned view --
+   with each one's time, the plain version's, a single PyTorch call's where
+   one computes the same function (SDPA's forward for K1, SDPA's backward
+   for K2 and K3 together), and the least time the card could take (the
+   bound; f32 attention at the 3xTF32 rate, 495/3 TFLOP/s);
 4. the diffusion path: ``api.immunize`` with the ``TrainConfig`` defaults
    (SD-1.5 at 512x512, f32, L2 eps 32, 10 EOT reps, LCM K=4 -> 2 steps) for
    3 iterations, random weights made on the card from the seed, synthetic
@@ -52,6 +55,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -60,6 +64,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 H100_F32_FLOPS = 67e12          # CUDA-core f32, dense (NVIDIA H100 SXM data sheet)
+#: f32-exact products on the tensor cores: three TF32 passes ("3xTF32") of
+#: the 495 TFLOP/s dense TF32 rate.  The attention kernels' f32 bound: the
+#: card can compute their products in f32 this fast, and K2/K3 do.
+H100_TF32X3_FLOPS = 495e12 / 3
 H100_BF16_FLOPS = 989e12        # tensor-core bf16, dense
 H100_BYTES_PER_S = 3.35e12      # HBM3
 UNET_SHAPE, VAE_SHAPE, IMAGE_SHAPE = (2, 4096, 8, 40), (1, 4096, 1, 512), (1, 3, 512, 512)
@@ -121,7 +129,11 @@ def ptxas_summary(report: str) -> list:
             for tag in ("flash_fwd_kernel", "flash_bwd_kv_kernel", "flash_bwd_q_kernel",
                         "pgd_l2_kernel", "pgd_linf_kernel"):
                 if tag in mangled:
-                    name = f"{tag}<{mangled.split(tag)[1][1:40]}>"
+                    rest = mangled.split(tag)[1]
+                    m = re.match(r"I(f|13__nv_bfloat16)((?:Li\d+E)*)E", rest)
+                    args = ([{"f": "f32"}.get(m[1], "bf16")] + re.findall(r"Li(\d+)E", m[2])
+                            if m else [rest[1:40]])
+                    name = f"{tag}<{', '.join(args)}>"
         elif "bytes spill stores" in line:
             nums = [int(tok) for tok in line.replace(",", " ").split() if tok.isdigit()]
             spill = sum(nums[1:3])
@@ -164,7 +176,7 @@ def check_flash(fa, shape, dtype, gen, times: bool) -> dict:
     if not times:
         return out
     item = q.element_size()
-    peak = H100_F32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
+    peak = H100_TF32X3_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
     mm = 2.0 * b * h * t * t * d                          # one [T x T x D] product
     tensor = b * t * h * d * item
     stats = b * t * h * 4
@@ -184,8 +196,17 @@ def check_flash(fa, shape, dtype, gen, times: bool) -> dict:
         "bwd_kv": bound_ms(4 * mm, 6 * tensor + 2 * stats, peak),
         "bwd_q": bound_ms(3 * mm, 5 * tensor + 2 * stats, peak),
     }
+    out["peak_tflops"] = peak / 1e12
+    out["ms"]["bwd"] = out["ms"]["bwd_kv"] + out["ms"]["bwd_q"]
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     out["library_ms"] = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)}
+    with torch.enable_grad():
+        # SDPA's backward alone (dQ, dK, dV together: K2 + K3's work)
+        leaves = tuple(x.detach().requires_grad_(True) for x in (qt, kt, vt))
+        o_sdpa = F.scaled_dot_product_attention(*leaves)
+        out["library_ms"]["bwd"] = cuda_ms(
+            lambda: torch.autograd.grad(o_sdpa, leaves, dot, retain_graph=True), reps)
+        del o_sdpa, leaves
 
     def sdpa_fwd_bwd():
         a, b_, c = (x.detach().requires_grad_(True) for x in (qt, kt, vt))
@@ -199,6 +220,24 @@ def check_flash(fa, shape, dtype, gen, times: bool) -> dict:
         out["library_ms"]["fwd_bwd"] = cuda_ms(sdpa_fwd_bwd, reps)
     out["ms"]["fwd_bwd"] = cuda_ms(flash_fwd_bwd, reps)
     return out
+
+
+def check_flash_refuses_misaligned(fa) -> None:
+    """K2 and K3 copy rows in 16-byte chunks: a tensor that starts off a
+    16-byte boundary is refused, not read wrong."""
+    import torch
+
+    shape = (1, 64, 1, 40)
+    bad = torch.zeros(math.prod(shape) + 1, device="cuda")[1:].view(shape)
+    good = torch.zeros(shape, device="cuda")
+    stats = torch.zeros(shape[:3], device="cuda")
+    require(bad.data_ptr() % 16 != 0, "the misaligned view is aligned")
+    for fn in (fa.flash_bwd_kv, fa.flash_bwd_q):
+        try:
+            fn(good, good, good, bad, stats, stats)
+        except ValueError:
+            continue
+        raise AssertionError(f"{fn.__name__} took a tensor off a 16-byte boundary")
 
 
 def check_pgd(pk, gen, mask: bool) -> dict:
@@ -624,12 +663,19 @@ def main(argv) -> int:
                   + ", ".join(f"{k} {r['err'][k]:.2e} (tol {r['tol'][k]:.1e})" for k in r["err"])
                   + "; ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["ms"].items())
                   + "; plain ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["plain_ms"].items())
-                  + "; bound ms " + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in r["bound"].items())
-                  + "; sdpa ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["library_ms"].items()),
-                  flush=True)
-    for shape in ((1, 100, 2, 40), (2, 200, 3, 64), (1, 130, 2, 80), (1, 70, 1, 512)):
-        check_flash(fa, shape, torch.float32, gen, times=False)    # ragged tails, every head dim
-    print("[kernels] flash ragged-tail shapes (T = 70..200, D = 40/64/80/512) agree", flush=True)
+                  + f"; bound ms at {r['peak_tflops']:.0f} TFLOP/s "
+                  + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in r["bound"].items())
+                  + "; sdpa ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["library_ms"].items())
+                  + f"; K2+K3 {r['ms']['bwd']:.3f} ms against SDPA's backward "
+                  f"{r['library_ms']['bwd']:.3f} ms", flush=True)
+    # ragged tails at every compiled head dim (every tile plan of K2/K3), f32 and bf16
+    for shape in ((1, 100, 2, 40), (2, 200, 3, 64), (1, 130, 2, 80), (1, 70, 1, 512),
+                  (1, 1000, 2, 40), (1, 1000, 2, 64), (1, 1000, 2, 80), (1, 1000, 1, 512)):
+        for dtype in (torch.float32, torch.bfloat16):
+            check_flash(fa, shape, dtype, gen, times=False)
+    check_flash_refuses_misaligned(fa)
+    print("[kernels] flash ragged-tail shapes (T = 70..1000, D = 40/64/80/512, f32 and bf16) "
+          "agree; K2/K3 refuse a misaligned tensor", flush=True)
     pgd = [check_pgd(pk, gen, mask) for mask in (False, True)]
     for r in pgd:
         print(f"[kernels] pgd_l2_update {IMAGE_SHAPE} mask={r['mask']}: max abs err "
@@ -776,7 +822,9 @@ def kernel_rows(flash, pgd, linf, report) -> list:
                 "launches": launches[path][sym], "max_abs_err": r["err"][key],
                 "ms": r["ms"][key], "plain_ms": r["plain_ms"][key],
                 "bound_ms": r["bound"][key][0], "bound_by": r["bound"][key][1],
-                "library_ms": r["library_ms"]["fwd"] if key == "fwd" else None,
+                "library_ms": r["library_ms"]["fwd" if key == "fwd" else "bwd"],
+                "library_call": ("scaled_dot_product_attention forward" if key == "fwd" else
+                                 "scaled_dot_product_attention backward: K2 and K3 together"),
                 "path": path, "shape": list(shape), "dtype": "float32", "ok": True,
             })
     r = pgd[0]

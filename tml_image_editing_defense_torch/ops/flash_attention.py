@@ -106,6 +106,14 @@ def _check_stats(name, q, *stats):
                              f"on {q.device}")
 
 
+def _check_aligned(name, *tensors):
+    """K2 and K3 copy rows by 16-byte cp.async: every tensor must start on a
+    16-byte boundary."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must start on a 16-byte boundary")
+
+
 def flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1: (o, lse).  Plain version on CPU tensors."""
     if q.device.type == "cpu":
@@ -123,6 +131,7 @@ def flash_bwd_kv(q, k, v, do, lse, delta) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2: (dk, dv) from the saved lse and delta = rowsum(dO o)."""
     _check("flash_bwd_kv", q, k, v, do)
     _check_stats("flash_bwd_kv", q, lse, delta)
+    _check_aligned("flash_bwd_kv", q, k, v, do)
     b, t, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     FLASH_BWD_KV(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
@@ -135,6 +144,7 @@ def flash_bwd_q(q, k, v, do, lse, delta) -> torch.Tensor:
     """K3: dq from the saved lse and delta = rowsum(dO o)."""
     _check("flash_bwd_q", q, k, v, do)
     _check_stats("flash_bwd_q", q, lse, delta)
+    _check_aligned("flash_bwd_q", q, k, v, do)
     b, t, h, d = q.shape
     dq = torch.empty_like(q)
     FLASH_BWD_Q(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
