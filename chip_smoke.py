@@ -17,7 +17,7 @@ Phases, each fatal on failure:
    mid-block) in f32 and bf16, and at [8, 4096, 1, 512] (the encoder
    attack's batched VAE mid-block) in f32; K1-K3 at ragged T (70..1000)
    at every compiled head dim (40, 64, 80, 512: every tile plan of K2/K3)
-   in f32 and bf16, and K2/K3's refusal of a misaligned tensor; the L2 PGD
+   in f32 and bf16, and K1-K3's refusal of a misaligned tensor; the L2 PGD
    update K4 at [1, 3, 512, 512] with and without a 0/1 mask; the L-inf PGD
    update K5 at [1, 3, 512, 512] and [8, 3, 512, 512] in f32 (bit-equal)
    and bf16 (within 4e-3), at a ragged size and on a misaligned view --
@@ -223,7 +223,7 @@ def check_flash(fa, shape, dtype, gen, times: bool) -> dict:
 
 
 def check_flash_refuses_misaligned(fa) -> None:
-    """K2 and K3 copy rows in 16-byte chunks: a tensor that starts off a
+    """K1, K2 and K3 copy rows in 16-byte chunks: a tensor that starts off a
     16-byte boundary is refused, not read wrong."""
     import torch
 
@@ -232,9 +232,12 @@ def check_flash_refuses_misaligned(fa) -> None:
     good = torch.zeros(shape, device="cuda")
     stats = torch.zeros(shape[:3], device="cuda")
     require(bad.data_ptr() % 16 != 0, "the misaligned view is aligned")
-    for fn in (fa.flash_bwd_kv, fa.flash_bwd_q):
+    calls = ((fa.flash_fwd, (good, good, bad)),
+             (fa.flash_bwd_kv, (good, good, good, bad, stats, stats)),
+             (fa.flash_bwd_q, (good, good, good, bad, stats, stats)))
+    for fn, args in calls:
         try:
-            fn(good, good, good, bad, stats, stats)
+            fn(*args)
         except ValueError:
             continue
         raise AssertionError(f"{fn.__name__} took a tensor off a 16-byte boundary")
@@ -666,8 +669,11 @@ def main(argv) -> int:
                   + f"; bound ms at {r['peak_tflops']:.0f} TFLOP/s "
                   + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in r["bound"].items())
                   + "; sdpa ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["library_ms"].items())
+                  + f"; K1 {r['ms']['fwd']:.3f} ms against SDPA's forward "
+                  f"{r['library_ms']['fwd']:.3f} ms ({r['ms']['fwd'] / r['library_ms']['fwd']:.2f}x)"
                   + f"; K2+K3 {r['ms']['bwd']:.3f} ms against SDPA's backward "
-                  f"{r['library_ms']['bwd']:.3f} ms", flush=True)
+                  f"{r['library_ms']['bwd']:.3f} ms ({r['ms']['bwd'] / r['library_ms']['bwd']:.2f}x)",
+                  flush=True)
     # ragged tails at every compiled head dim (every tile plan of K2/K3), f32 and bf16
     for shape in ((1, 100, 2, 40), (2, 200, 3, 64), (1, 130, 2, 80), (1, 70, 1, 512),
                   (1, 1000, 2, 40), (1, 1000, 2, 64), (1, 1000, 2, 80), (1, 1000, 1, 512)):
@@ -675,7 +681,7 @@ def main(argv) -> int:
             check_flash(fa, shape, dtype, gen, times=False)
     check_flash_refuses_misaligned(fa)
     print("[kernels] flash ragged-tail shapes (T = 70..1000, D = 40/64/80/512, f32 and bf16) "
-          "agree; K2/K3 refuse a misaligned tensor", flush=True)
+          "agree; K1-K3 refuse a misaligned tensor", flush=True)
     pgd = [check_pgd(pk, gen, mask) for mask in (False, True)]
     for r in pgd:
         print(f"[kernels] pgd_l2_update {IMAGE_SHAPE} mask={r['mask']}: max abs err "

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from tml_image_editing_defense_tpu.models import layers as jl
+from tml_image_editing_defense_tpu.ops.flash_attention import _flash_fwd_res as pallas_fwd_res
 from tml_image_editing_defense_tpu.ops.flash_attention import flash_attention as pallas_flash
 
 from tml_image_editing_defense_torch.models import layers as pl
@@ -134,13 +135,85 @@ def _tf32_mm(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return out
 
 
-@pytest.mark.parametrize("passes", [3, 1])
-@pytest.mark.parametrize("shape", [(1, 128, 1, 40), (1, 64, 1, 512)])
-def test_tf32_passes_against_the_f32_tolerance(shape, passes):
-    """Why the f32 kernels take three TF32 passes: the backward with all five
-    products split as K2/K3 split them (S, dP, dV, dK, dQ; P and dS rounded
-    to TF32 as operands) is within the 1e-4 x max(1, |ref|) that the card's
-    check holds K2/K3 to with three passes, and outside it with one."""
+def _k1_emulated(q, k, v, passes: int, bk: int):
+    """K1's arithmetic for one (b, h), q/k/v [T, D] f32: KV tiles of ``bk``
+    rows (the last one ragged), S and P V as the tensor cores run them
+    (``_tf32_mm``: Q, K, P and V split into TF32 operands), and the online
+    softmax in base 2 with an f32 running max m and sum l.  Returns
+    (o, lse)."""
+    sl2 = torch.tensor(1.0 / np.sqrt(q.shape[-1]) * np.log2(np.e), dtype=torch.float32)
+    m = torch.full((q.shape[0],), -torch.inf)
+    l = torch.zeros(q.shape[0])
+    acc = torch.zeros_like(q)
+    for k0 in range(0, k.shape[0], bk):
+        s = _tf32_mm(q, k[k0:k0 + bk].T, passes) * sl2
+        m_new = torch.maximum(m, s.max(1).values)
+        corr = torch.exp2(m - m_new)                  # 0 at the first tile
+        p = torch.exp2(s - m_new[:, None])
+        l = l * corr + p.sum(1)
+        acc = acc * corr[:, None] + _tf32_mm(p, v[k0:k0 + bk], passes)
+        m = m_new
+    return acc / l[:, None], m * np.float32(np.log(2.0)) + torch.log(l)
+
+
+def pallas_lse(q, k, v):
+    """The Pallas forward (interpret mode on the CPU) on [B, T, H, D] numpy
+    inputs: o [B, T, H, D] and lse [B, T, H]."""
+    b, t, h, _ = q.shape
+    o, res = pallas_fwd_res(*(jnp.asarray(a) for a in (q, k, v)))
+    return np.array(o), np.array(res[-1]).reshape(b, h, t).transpose(0, 2, 1)
+
+
+def _fwd_err(got, want) -> float:
+    """chip_smoke.py's measure for K1: the larger of the errors of o and lse,
+    over max(1, |o|)."""
+    (o, lse), (o_ref, lse_ref) = got, want
+    err = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+    return err / max(1.0, o_ref.abs().max().item())
+
+
+#: Backward cases keep their ids; forward cases emulate K1 at each plan's
+#: KV tile (64 rows at D = 40, 16 at D = 512) and a ragged T.
+TF32_CASES = [
+    pytest.param("backward", shape, passes, id=f"shape{i}-{passes}")
+    for i, shape in enumerate([(1, 128, 1, 40), (1, 64, 1, 512)]) for passes in (3, 1)
+] + [
+    pytest.param("forward", shape, passes, id=f"forward-T{shape[1]}-D{shape[3]}-{passes}")
+    for shape in [(1, 200, 1, 40), (1, 150, 1, 512)] for passes in (3, 1)
+]
+
+
+@pytest.mark.parametrize("kernel,shape,passes", TF32_CASES)
+def test_tf32_passes_against_the_f32_tolerance(kernel, shape, passes):
+    """Why the f32 kernels take three TF32 passes.
+
+    Backward: all five products split as K2/K3 split them (S, dP, dV, dK,
+    dQ; P and dS rounded to TF32 as operands) are within the 1e-4 x
+    max(1, |ref|) that the card's check holds K2/K3 to with three passes,
+    and outside it with one.
+
+    Forward: K1's tile walk (``_k1_emulated``) at T = 200 (D = 40, 64-row
+    KV tiles) and T = 150 (D = 512, 16-row tiles), and on the first 128
+    rows, a T that the Pallas kernel takes: o and lse within 1e-4 x
+    max(1, |o|) of ``flash_fwd_reference`` (and, at T = 128, of the Pallas
+    forward in interpret mode) with three passes; with one pass, outside
+    it against the reference at both shapes."""
+    if kernel == "forward":
+        q, k, v = (torch.from_numpy(a) for a in _inputs(shape, 7)[:3])
+        bk = 16 if shape[-1] > 128 else 64
+        got = _k1_emulated(q[0, :, 0], k[0, :, 0], v[0, :, 0], passes, bk)
+        o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
+        err = _fwd_err(got, (o_ref[0, :, 0], lse_ref[0, :, 0]))
+        if passes == 1:
+            assert err > 1e-4, err
+            return
+        assert err <= 1e-4, err
+        q, k, v = (x[:, :128] for x in (q, k, v))
+        got = _k1_emulated(q[0, :, 0], k[0, :, 0], v[0, :, 0], passes, bk)
+        jo, jlse = pallas_lse(q.numpy(), k.numpy(), v.numpy())
+        assert _fwd_err(got, (torch.from_numpy(jo)[0, :, 0], torch.from_numpy(jlse)[0, :, 0])) \
+            <= 1e-4
+        return
     q, k, v, g = (torch.from_numpy(a) for a in _inputs(shape, 7))
     o, lse = fa.flash_fwd_reference(q, k, v)
     want = fa.flash_bwd_reference(q, k, v, o, lse, g)

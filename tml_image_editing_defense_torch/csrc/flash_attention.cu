@@ -23,18 +23,10 @@
 // writes and re-reads a [B*H, T, T] f32 tensor per layer, 1 GB at the UNet
 // shape): each tile of S / P / dS lives in registers and shared memory only.
 //
-// K1 (forward) runs its products as CUDA-core f32 FMAs, so its bound is the
-// 67 TFLOP/s of the CUDA cores.  Each thread owns a register micro-tile of
-// S = QK^T and of the O accumulator, so a shared-memory operand load feeds
-// several FMAs; row pitches of D+1 and BK+1 floats keep column walks on
-// distinct banks; at D = 512 a 64-row f32 tile of Q, K and V would need
-// 394 KB of shared memory, so its tiles shrink to 32 rows.  Its shared-memory
-// loads, two per FMA at D = 512, are what hold it back.
-//
-// K2 and K3 (backward) run all five products -- S = QK^T, dP = dO V^T,
-// dV += P^T dO, dK += dS^T Q, dQ += dS K -- on the tensor cores with
-// mma.sync.m16n8k8 in TF32, so they are bound by operations at the tensor
-// cores' TF32 rate.
+// All three kernels run their products -- S = QK^T and O += P V in K1;
+// S = QK^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K in K2 and
+// K3 -- on the tensor cores with mma.sync.m16n8k8 in TF32, so they are bound
+// by operations at the tensor cores' TF32 rate.
 //  - f32 inputs: "3xTF32".  Each operand x is split in registers, as its
 //    fragment is loaded, into hi = tf32(x), rounded to nearest with ties
 //    away from zero as cvt.rna.tf32.f32 rounds (done with two integer ops,
@@ -53,12 +45,13 @@
 //    dS K).  mma.sync loads each fragment from shared memory in whichever
 //    orientation the tile sits.  Its ceiling on an H100 is about 320
 //    TFLOP/s in TF32 (two thirds of wgmma's), 107 in 3xTF32.
-//  - Two kernels, no atomics: K2 owns a KV tile and loops over the Q tiles,
-//    K3 owns a Q tile and loops over the KV tiles, as the TPU grid's
-//    sequential axis did, so results are the same from run to run.
-//  - The streamed tiles (Q, dO, lse, delta in K2; K, V in K3) arrive by
-//    cp.async (16 bytes, .cg) in a two-stage ring, so the next tile's load
-//    overlaps this tile's products; rows past T are zero-filled with a
+//  - The backward in two kernels, no atomics: K2 owns a KV tile and loops
+//    over the Q tiles, K3 (like K1) owns a Q tile and loops over the KV
+//    tiles, as the TPU grid's sequential axis did, so results are the same
+//    from run to run.
+//  - The streamed tiles (K, V in K1 and K3; Q, dO, lse, delta in K2) arrive
+//    by cp.async (16 bytes, .cg) in a two-stage ring, so the next tile's
+//    load overlaps this tile's products; rows past T are zero-filled with a
 //    source size of 0.  Row pitches are padded to W 32-bit words with
 //    W = 4 mod 8, which makes every fragment load below free of bank
 //    conflicts (row-major walks hit banks g*W + t, row walks 2t*W + g).
@@ -67,8 +60,30 @@
 //    and slot t+4 for column 2t+1, and the B operand is read from rows 2t,
 //    2t+1 to match.
 //
-// Tile plans (BwdPlan), reckoned from shared memory (227 KB a block) and
-// registers (255 a thread):
+// K1's tile plans (FwdPlan), reckoned from shared memory (227 KB a block)
+// and registers (65,536 an SM, 255 a thread).  The Q tile arrives in a ring
+// slot and goes to registers as A fragments split once (hi and lo), so its
+// shared memory joins the ring; the online softmax keeps an f32 running max
+// m (base 2) and each lane's part of the row sum l, rescales the O
+// accumulator in registers by corr = exp(m_prev - m_new), and adds P V.
+//  - D <= 80: 64-row Q tiles, 4 warps of 16 rows (flash-2), 64-row K and V
+//    tiles.  S [16 x 64] is 8 C tiles a warp; a row's max and sum are two
+//    shuffles over its 4 lanes; P goes to P V's A operand in registers.
+//    f32 D = 40: 44 KB of shared memory (the ring), 168 registers, 3 blocks
+//    an SM; grid 64 x 16 = 1024 blocks at [2, 4096, 8, 40].
+//  - D = 512: every block streams all of K and V through L2 (16.8 MB a
+//    block in f32), so the resident Q tile is 32 rows, twice K2/K3's 16,
+//    which halves that traffic and still gives 128 blocks at B*H = 1.  16
+//    warps (512 threads, 128 registers at most), 16-row K and V tiles.
+//    S [32 x 16]: warp w takes Q half w % 2 and an eighth of D (8 k-steps,
+//    its A fragments in 64 registers) and writes its partial tile to shared
+//    memory; after a barrier each thread sums the 8 parts of one score
+//    element and updates its row's statistics (16 lanes); after another,
+//    warp w adds P V to O rows of its half, D columns [64 (w / 2), +64)
+//    (32 accumulator registers).  f32: the ring's two stages (132 KB) and
+//    the partial scores (24 KB), one block an SM; 128 registers, no spills.
+//
+// K2/K3's tile plans (BwdPlan):
 //  - D <= 80: 64-row tiles, 4 warps, each warp 16 rows of the 64 x 64 score
 //    tile (the flash-2 layout), so S / dP -> P / dS -> dV, dK (or dQ) stay in
 //    one warp's registers.  f32 D = 40: 68 KB of shared memory, 3
@@ -85,14 +100,15 @@
 //    stages of two 16-row tiles (132 KB) and the partial scores (12 KB),
 //    one block per SM.  A 32-row resident tile would need twice the
 //    registers for its A fragments, which the register file does not have.
-// What holds the D = 512 plan back (H100, f32, B*H = 8): each block reads
-// every streamed row for 16 resident rows, 66 KB of L2 traffic a tile, and
-// those copies and the products slow each other; without the copies K2 and
-// K3 take two thirds to three quarters of their time, with half the rows
-// copied 85 %.
+// What holds the D = 512 plans back (H100, f32, B*H = 8): each block reads
+// every streamed row for 16 (K2, K3) or 32 (K1) resident rows, and those
+// copies and the products slow each other; without the copies K2 and K3
+// take two thirds to three quarters of their time, with half the rows
+// copied 85 %.  K1 takes 79 % of its time without the copies, when its
+// products run at about half the mma.sync 3xTF32 ceiling, and the copies
+// alone (17.2 GB read through L2) take 63 %.
 // Later work: sharing the streamed tiles between the blocks of a cluster
-// (TMA multicast), wgmma and TMA for the bf16 path, and K1 on the tensor
-// cores.
+// (TMA multicast), and wgmma and TMA for the bf16 path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,11 +124,6 @@ template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Reductions over the W neighbouring lanes that share one row.
 template <int W> __device__ __forceinline__ float group_max(float v) {
@@ -126,169 +137,8 @@ template <int W> __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// ROWS rows of one (b, h) slice, starting at row0, into shared memory as f32
-// with row pitch LD.  Rows at or past T are zero.
-template <typename T, int D, int LD, int ROWS, int NT>
-__device__ __forceinline__ void load_rows(float* s, const T* __restrict__ g, int row0,
-                                          int T_len, int row_stride) {
-  for (int idx = threadIdx.x; idx < ROWS * D; idx += NT) {
-    const int r = idx / D, c = idx - r * D;
-    const int t = row0 + r;
-    s[r * LD + c] = t < T_len ? to_f(g[(size_t)t * row_stride + c]) : 0.f;
-  }
-}
-
-// out[i][j] = sum_d A[ra(i)][d] * B[cb(j)][d], ra(i) = ty + TY*i, cb(j) = tx + TX*j.
-template <int RM, int RN, int TX, int TY, int D, int LDA, int LDB>
-__device__ __forceinline__ void mm_abt(float (&out)[RM][RN], const float* A, const float* B,
-                                       int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) out[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[RM], b[RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = A[(ty + TY * i) * LDA + d];
-#pragma unroll
-    for (int j = 0; j < RN; ++j) b[j] = B[(tx + TX * j) * LDB + d];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) out[i][j] = fmaf(a[i], b[j], out[i][j]);
-  }
-}
-
-// acc[i][j] += sum_k A[ra(i)][k] * B[k][cb(j)], ra(i) = ty + TY*i, cb(j) = tx + TX*j.
-template <int RM, int RN, int TX, int TY, int K, int LDA, int LDB>
-__device__ __forceinline__ void mm_acc(float (&acc)[RM][RN], const float* A, const float* B,
-                                       int tx, int ty) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[RM], b[RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = A[(ty + TY * i) * LDA + k];
-#pragma unroll
-    for (int j = 0; j < RN; ++j) b[j] = B[k * LDB + tx + TX * j];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// Thread layouts.  "S layout" covers a [ROWS x COLS] score tile: TXS lanes
-// across the columns (one row's lanes are neighbours in one warp, so row
-// reductions are shuffles), rows strided by NT/TXS.  "O layout" covers a
-// [ROWS x D] accumulator: TXO lanes across D, rows strided by NT/TXO.
-template <int NT, int TXS, int TXO, int ROWS_S, int COLS_S, int ROWS_O, int D>
-struct Layout {
-  static constexpr int TYS = NT / TXS, RS = ROWS_S / TYS, CS = COLS_S / TXS;
-  static constexpr int TYO = NT / TXO, RO = ROWS_O / TYO, CO = D / TXO;
-  static_assert(TXS <= 32 && (TXS & (TXS - 1)) == 0, "row lanes must sit in one warp");
-  static_assert(RS * TYS == ROWS_S && CS * TXS == COLS_S, "score tile does not divide");
-  static_assert(RO * TYO == ROWS_O && CO * TXO == D, "accumulator tile does not divide");
-};
-
 // ---------------------------------------------------------------------------
-// K1: forward.  Grid (ceil(T/BQ), B*H); one block per (b*h, BQ-row Q tile),
-// looping over the KV tiles (the TPU grid's sequential axis).
-// ---------------------------------------------------------------------------
-template <typename T, int D, int BQ, int BK, int NT, int TXS, int TXO>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int T_len, int H, float scale) {
-  using L = Layout<NT, TXS, TXO, BQ, BK, BQ, D>;
-  constexpr int LD = D + 1, LDS = BK + 1;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;
-  float* sCorr = sP + BQ * LDS;
-  float* sL = sCorr + BQ;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * BQ, rs = H * D;
-  const size_t base = ((size_t)b * T_len * H + h) * D;
-  const int tid = threadIdx.x;
-  const int txs = tid % TXS, tys = tid / TXS, txo = tid % TXO, tyo = tid / TXO;
-
-  load_rows<T, D, LD, BQ, NT>(sQ, q + base, q0, T_len, rs);
-  float m[L::RS], l[L::RS];
-#pragma unroll
-  for (int i = 0; i < L::RS; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-  float acc[L::RO][L::CO];
-#pragma unroll
-  for (int i = 0; i < L::RO; ++i)
-#pragma unroll
-    for (int j = 0; j < L::CO; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < T_len; k0 += BK) {
-    load_rows<T, D, LD, BK, NT>(sK, k + base, k0, T_len, rs);
-    load_rows<T, D, LD, BK, NT>(sV, v + base, k0, T_len, rs);
-    __syncthreads();
-    float s[L::RS][L::CS];
-    mm_abt<L::RS, L::CS, TXS, L::TYS, D, LD, LD>(s, sQ, sK, txs, tys);
-#pragma unroll
-    for (int i = 0; i < L::RS; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < L::CS; ++j) {
-        const bool ok = k0 + txs + TXS * j < T_len;
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = group_max<TXS>(mx);
-      const float m_new = fmaxf(m[i], mx);   // finite: column k0 is always valid
-      float sum = 0.f;
-      const int r = tys + L::TYS * i;
-#pragma unroll
-      for (int j = 0; j < L::CS; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[r * LDS + txs + TXS * j] = p;
-        sum += p;
-      }
-      sum = group_sum<TXS>(sum);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-      if (txs == 0) sCorr[r] = corr;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < L::RO; ++i) {
-      const float c = sCorr[tyo + L::TYO * i];
-#pragma unroll
-      for (int j = 0; j < L::CO; ++j) acc[i][j] *= c;
-    }
-    mm_acc<L::RO, L::CO, TXO, L::TYO, BK, LDS, LD>(acc, sP, sV, txo, tyo);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < L::RS; ++i) {
-    const int r = tys + L::TYS * i, t = q0 + r;
-    if (txs == 0) {
-      sL[r] = l[i];
-      if (t < T_len) lse[((size_t)b * T_len + t) * H + h] = m[i] + logf(l[i]);
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < L::RO; ++i) {
-    const int r = tyo + L::TYO * i, t = q0 + r;
-    if (t >= T_len) continue;
-    const float denom = sL[r];
-#pragma unroll
-    for (int j = 0; j < L::CO; ++j)
-      o[base + (size_t)t * rs + txo + TXO * j] = from_f<T>(acc[i][j] / denom);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core building blocks of K2 and K3.
+// Tensor-core building blocks of K1, K2 and K3.
 //
 // m16n8k8 TF32 fragments (PTX ISA, mma.m16n8k8), lane = 4 g + t:
 //   A (16 x 8):  a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
@@ -479,6 +329,239 @@ __device__ __forceinline__ void store_acc(T* out, const float (&acc)[NACC][4], i
   }
 }
 
+// Row pitch, in elements of T, of a tile of D columns in shared memory: the
+// row's 32-bit words padded to 4 mod 8.
+template <typename T> constexpr int row_pitch(int D) {
+  return (D * (int)sizeof(T) / 4 + (12 - D * (int)sizeof(T) / 4 % 8) % 8) * 4 / (int)sizeof(T);
+}
+
+// ---------------------------------------------------------------------------
+// K1: forward.  Grid (ceil(T/BQ), B*H); one block per (b*h, BQ-row Q tile),
+// looping over the KV tiles (the TPU grid's sequential axis):
+//   S = Q K^T; m' = max(m, rowmax S scale); corr = exp(m - m');
+//   P = exp(S scale - m'); l = l corr + rowsum P; O = O corr + P V;
+// at the end o = O / l and lse = m + log l.  The exponentials run in base 2
+// on S scale log2(e), so m is kept in base-2 units.
+// ---------------------------------------------------------------------------
+
+// K1's tile plan for one input type and head dim (see the note at the top).
+// Warp w takes the 16 Q rows of group w % RG and part w / RG of D (KW
+// k-steps of S, NACC 8-column tiles of O).
+template <typename T, int D> struct FwdPlan {
+  static constexpr bool WIDE = D > 128;
+  static constexpr int PASSES = sizeof(T) == 4 ? 3 : 1;
+  static constexpr int NT = WIDE ? 512 : 128, WARPS = NT / 32;
+  static constexpr int BQ = WIDE ? 32 : 64, BK = WIDE ? 16 : 64;   // Q rows, streamed KV rows
+  static constexpr int LDT = row_pitch<T>(D);
+  static constexpr int WP = 24;                                    // pitch of the wide score buffer
+  static constexpr int RG = BQ / 16, PARTS = WARPS / RG;          // row groups, parts of D
+  static constexpr int KW = D / 8 / PARTS;                         // k-steps of a warp's S
+  static constexpr int NACC = D / 8 / PARTS;                       // 8-column O tiles a warp
+  static constexpr size_t STAGE = 2 * (size_t)BK * LDT * sizeof(T);   // a ring slot: K and V
+  static constexpr size_t BUF = WIDE ? (size_t)PARTS * BQ * WP * sizeof(float) : 0;
+  static constexpr size_t ROWS = WIDE ? 2 * BQ * sizeof(float) : 0;   // wide: corr, 1 / l
+  static constexpr size_t smem = 2 * STAGE + BUF + ROWS;            // a two-stage ring
+  static_assert(D % 8 == 0 && D * sizeof(T) % 16 == 0, "rows must be whole k-steps and chunks");
+  static_assert((size_t)BQ * LDT * sizeof(T) <= STAGE, "the Q tile arrives in a ring slot");
+  static_assert(RG * 16 == BQ && PARTS * RG == WARPS && PARTS * KW * 8 == D,
+                "the warps cover Q's rows and D");
+  static_assert(WIDE ? (BK == 16 && NT == BQ * BK) : (PARTS == 1 && BK == 64),
+                "wide: a score element a thread; small: a warp's rows x 8 S tiles");
+};
+
+// Running row statistics and output accumulator of one thread.  Small plan:
+// the lane's rows g and g + 8 of its warp's 16 (m[r], l[r]).  Wide plan:
+// score element (tid / 16, tid % 16), its row's m[0], l[0].  l is this
+// thread's part of the row sum; the row's lanes add theirs at the end (each
+// rescale multiplies all of them by the same corr).
+template <typename P> struct FwdState {
+  float acc[P::NACC][4] = {};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+};
+
+template <typename P> using QFrags = Frag<P::PASSES, 4>[P::KW];
+
+// Small plan, one KV tile: this warp's 16 Q rows x the 64 KV rows, all in
+// registers.  S's C tiles become P's A operands (permuted order).
+template <typename P, typename T>
+__device__ __forceinline__ void fwd_small_tile(FwdState<P>& st, const QFrags<P>& qa, const T* cK,
+                                               const T* cV, int k0, int T_len, float sl2, int g,
+                                               int t) {
+  constexpr int PS = P::PASSES, LDT = P::LDT;
+  float s[8][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < P::KW; ++kk) mma_bt<PS, 8, T, LDT>(s, qa[kk], cK, 8 * kk, g, t);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * t + (e & 1);   // KV row within the tile
+      s[j][e] = k0 + c < T_len ? s[j][e] * sl2 : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+  float corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(st.m[r], group_max<4>(mx[r]));   // finite: column k0 is valid
+    corr[r] = exp2f(st.m[r] - mn);                            // 0 at the first tile
+    st.m[r] = mn;
+    st.l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int n = 0; n < P::NACC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.acc[n][e] *= corr[e >> 1];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = exp2f(s[j][e] - st.m[e >> 1]);
+      st.l[e >> 1] += s[j][e];
+    }
+    Frag<PS, 4> ap;
+    a_from_c(ap, s[j]);
+    warp_acc<PS, P::NACC, T, LDT>(st.acc, ap, cV, 8 * j, 0, g, t);
+  }
+}
+
+// Wide plan, one KV tile, in three steps between barriers:
+//  1. warp w: its 16 Q rows times the 16 KV rows over its part of D, into
+//     sBuf[part] (pitch WP), from the Q fragments in registers;
+//  2. thread (r, c): the parts of S[r][c] summed, the row's statistics
+//     (16 lanes), P[r][c] into sBuf[0], the row's corr into sRow[r];
+//  3. warp w: O[its rows][its columns] = O corr + P V.
+template <typename P, typename T>
+__device__ __forceinline__ void fwd_wide_tile(FwdState<P>& st, const QFrags<P>& qa, const T* cK,
+                                              const T* cV, float* sBuf, float* sRow, int k0,
+                                              int T_len, float sl2, int rg, int part, int g,
+                                              int t) {
+  constexpr int PS = P::PASSES, LDT = P::LDT, WP = P::WP, BQ = P::BQ;
+  float x[2][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < P::KW; ++kk)
+    mma_bt<PS, 2, T, LDT>(x, qa[kk], cK, 8 * (part * P::KW + kk), g, t);
+  float* dst = sBuf + (part * BQ + 16 * rg) * WP;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    store2(dst + g * WP + 8 * j + 2 * t, x[j][0], x[j][1]);
+    store2(dst + (g + 8) * WP + 8 * j + 2 * t, x[j][2], x[j][3]);
+  }
+  __syncthreads();
+  {
+    const int r = threadIdx.x >> 4, c = threadIdx.x & 15;
+    float sv = 0.f;
+#pragma unroll
+    for (int qd = 0; qd < P::PARTS; ++qd) sv += sBuf[(qd * BQ + r) * WP + c];
+    const float xv = k0 + c < T_len ? sv * sl2 : -INFINITY;
+    const float mn = fmaxf(st.m[0], group_max<16>(xv));   // finite: column k0 is valid
+    const float corr = exp2f(st.m[0] - mn);                 // 0 at the first tile
+    const float p = exp2f(xv - mn);
+    st.l[0] = st.l[0] * corr + p;
+    st.m[0] = mn;
+    sBuf[r * WP + c] = p;
+    if (c == 0) sRow[r] = corr;
+  }
+  __syncthreads();
+  const float c0 = sRow[16 * rg + g], c1 = sRow[16 * rg + g + 8];
+#pragma unroll
+  for (int n = 0; n < P::NACC; ++n) {
+    st.acc[n][0] *= c0;
+    st.acc[n][1] *= c0;
+    st.acc[n][2] *= c1;
+    st.acc[n][3] *= c1;
+  }
+#pragma unroll
+  for (int kk = 0; kk < P::BK / 8; ++kk) {
+    Frag<PS, 4> ap;
+    a_from_buf<PS, WP>(ap, sBuf + 16 * rg * WP, 8 * kk, g, t);
+    warp_acc<PS, P::NACC, T, LDT>(st.acc, ap, cV, 8 * kk, 8 * P::NACC * part, g, t);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(FwdPlan<T, D>::NT)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, float* __restrict__ lse, int T_len, int H, float scale) {
+  using P = FwdPlan<T, D>;
+  constexpr int BQ = P::BQ, BK = P::BK, LDT = P::LDT, NT = P::NT;
+  constexpr int TE = BK * LDT;   // elements of one K or V tile
+  constexpr float kLn2 = 0.6931471805599453f;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);                    // [2 slots][K, V]
+  float* sBuf = reinterpret_cast<float*>(ring + 2 * 2 * TE);   // wide: [PARTS][BQ][WP]
+  float* sRow = sBuf + P::BUF / sizeof(float);                  // wide: [corr, 1 / l][BQ]
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * BQ, rs = H * D;
+  const size_t base = ((size_t)b * T_len * H + h) * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int rg = warp % P::RG, part = warp / P::RG;   // this warp's Q rows and part of D
+  const float sl2 = scale * kLog2e;
+
+  const int n_tiles = (T_len + BK - 1) / BK;
+  // KV tile i into slot i & 1, one commit group each.
+  auto stage = [&](int i) {
+    if (i < n_tiles) {
+      T* s = ring + (i & 1) * 2 * TE;
+      copy_rows<T, D, LDT, BK, NT>(s, k + base, i * BK, T_len, rs);
+      copy_rows<T, D, LDT, BK, NT>(s + TE, v + base, i * BK, T_len, rs);
+    }
+    cp_async_commit();
+  };
+  // The Q tile arrives in slot 1, with tile 0, and goes to registers as A
+  // fragments split once; slot 1 then takes tile 1.
+  T* sQ = ring + 2 * TE;
+  copy_rows<T, D, LDT, BQ, NT>(sQ, q + base, q0, T_len, rs);
+  stage(0);
+  cp_async_wait<0>();
+  __syncthreads();
+  QFrags<P> qa;
+#pragma unroll
+  for (int kk = 0; kk < P::KW; ++kk)
+    load_a<P::PASSES, T, LDT>(qa[kk], sQ + 16 * rg * LDT, 8 * (part * P::KW + kk), g, t);
+
+  FwdState<P> st;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile i is here; every warp is done with tile i - 1 (or Q)
+    stage(i + 1);      // into the slot of tile i - 1, while tile i is computed
+    const T* cK = ring + (i & 1) * 2 * TE;
+    if constexpr (P::WIDE) {
+      fwd_wide_tile<P, T>(st, qa, cK, cK + TE, sBuf, sRow, i * BK, T_len, sl2, rg, part, g, t);
+    } else {
+      fwd_small_tile<P, T>(st, qa, cK, cK + TE, i * BK, T_len, sl2, g, t);
+    }
+  }
+
+  const size_t sbase = (size_t)b * T_len * H + h;
+  float inv[2];
+  if constexpr (P::WIDE) {
+    const int r = threadIdx.x >> 4;
+    const float l = group_sum<16>(st.l[0]);
+    if ((threadIdx.x & 15) == 0) {
+      sRow[BQ + r] = 1.f / l;
+      if (q0 + r < T_len) lse[sbase + (size_t)(q0 + r) * H] = st.m[0] * kLn2 + logf(l);
+    }
+    __syncthreads();
+    inv[0] = sRow[BQ + 16 * rg + g];
+    inv[1] = sRow[BQ + 16 * rg + g + 8];
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float l = group_sum<4>(st.l[r]);
+      const int row = q0 + 16 * rg + g + 8 * r;
+      if (t == 0 && row < T_len) lse[sbase + (size_t)row * H] = st.m[r] * kLn2 + logf(l);
+      inv[r] = 1.f / l;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < P::NACC; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.acc[n][e] *= inv[e >> 1];
+  store_acc<T, P::NACC>(o + base, st.acc, q0 + 16 * rg, 8 * P::NACC * part, T_len, rs, g, t);
+}
+
 // The tile plan of K2 and K3 for one input type and head dim (see the note at
 // the top).  BR is the row count of every tile, resident and streamed.
 template <typename T, int D> struct BwdPlan {
@@ -486,8 +569,7 @@ template <typename T, int D> struct BwdPlan {
   static constexpr int PASSES = sizeof(T) == 4 ? 3 : 1;
   static constexpr int NT = WIDE ? 256 : 128, WARPS = NT / 32;
   static constexpr int BR = WIDE ? 16 : 64;
-  static constexpr int WORDS = D * (int)sizeof(T) / 4;          // 32-bit words in a row
-  static constexpr int LDT = (WORDS + (12 - WORDS % 8) % 8) * 4 / (int)sizeof(T);   // pitch = 4 mod 8 words
+  static constexpr int LDT = row_pitch<T>(D);
   static constexpr int WP = 24;                                // pitch of the wide score buffers
   static constexpr int NACC = WIDE ? D / (8 * WARPS) : D / 8;  // 8-column accumulator tiles a warp
   static constexpr int PARTS = WARPS / 2, KW = D / 8 / PARTS;  // wide: D parts, k-steps a part
@@ -767,21 +849,6 @@ flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   store_acc<T, P::NACC>(dq + base, dq_acc, r0, c0, T_len, rs, g, t);
 }
 
-// K1's tile plan.  Small heads: 64x64 tiles, 128 threads.  D = 512: see the
-// note at the top (shared memory caps the tiles at 32 rows).
-template <int D> struct Plan {
-  static constexpr int NT = 128, TXS = 16, TXO = 8;
-  static constexpr int FWD_BQ = 64, FWD_BK = 64;
-};
-template <> struct Plan<512> {
-  static constexpr int NT = 256, TXS = 16, TXO = 32;
-  static constexpr int FWD_BQ = 32, FWD_BK = 32;
-};
-
-constexpr size_t fwd_smem(int D, int BQ, int BK) {
-  return sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + 1) + (size_t)BQ * (BK + 1) + 2 * BQ);
-}
-
 template <typename KernelFn>
 cudaError_t allow_smem(KernelFn fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -798,14 +865,14 @@ bool misaligned(std::initializer_list<const void*> ptrs) {
 template <typename T, int D>
 int fwd_launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int T_len,
                int H, float scale, cudaStream_t stream) {
-  using P = Plan<D>;
-  auto fn = flash_fwd_kernel<T, D, P::FWD_BQ, P::FWD_BK, P::NT, P::TXS, P::TXO>;
-  const size_t smem = fwd_smem(D, P::FWD_BQ, P::FWD_BK);
-  cudaError_t err = allow_smem(fn, smem);
+  using P = FwdPlan<T, D>;
+  if (misaligned({q, k, v, o})) return (int)cudaErrorMisalignedAddress;
+  auto fn = flash_fwd_kernel<T, D>;
+  cudaError_t err = allow_smem(fn, P::smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T_len + P::FWD_BQ - 1) / P::FWD_BQ, B * H);
-  fn<<<grid, P::NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
-                                     T_len, H, scale);
+  dim3 grid((T_len + P::BQ - 1) / P::BQ, B * H);
+  fn<<<grid, P::NT, P::smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse,
+                                        T_len, H, scale);
   return (int)cudaGetLastError();
 }
 

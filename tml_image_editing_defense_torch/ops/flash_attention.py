@@ -107,8 +107,8 @@ def _check_stats(name, q, *stats):
 
 
 def _check_aligned(name, *tensors):
-    """K2 and K3 copy rows by 16-byte cp.async: every tensor must start on a
-    16-byte boundary."""
+    """K1, K2 and K3 copy rows by 16-byte cp.async: every tensor must start
+    on a 16-byte boundary."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must start on a 16-byte boundary")
@@ -119,6 +119,7 @@ def flash_fwd(q, k, v) -> Tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v)
     _check("flash_fwd", q, k, v)
+    _check_aligned("flash_fwd", q, k, v)
     b, t, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, t, h), dtype=torch.float32, device=q.device)
