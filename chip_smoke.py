@@ -18,13 +18,20 @@ Phases, each fatal on failure:
    attack's batched VAE mid-block) in f32; K1-K3 at ragged T (70..1000)
    at every compiled head dim (40, 64, 80, 512: every tile plan of K2/K3)
    in f32 and bf16, and K1-K3's refusal of a misaligned tensor; the L2 PGD
-   update K4 at [1, 3, 512, 512] with and without a 0/1 mask; the L-inf PGD
-   update K5 at [1, 3, 512, 512] and [8, 3, 512, 512] in f32 (bit-equal)
-   and bf16 (within 4e-3), at a ragged size and on a misaligned view --
-   with each one's time, the plain version's, a single PyTorch call's where
-   one computes the same function (SDPA's forward for K1, SDPA's backward
-   for K2 and K3 together), and the least time the card could take (the
-   bound; f32 attention at the 3xTF32 rate, 495/3 TFLOP/s);
+   update K4 at [1, 3, 512, 512] with and without a 0/1 mask, at
+   [8, 3, 512, 512] (per-sample norms) and in bf16 (within one bf16 ulp),
+   at a ragged [2, 3, 33, 35], on misaligned views, on the eps-ball with
+   the step outward and inward, with a zero gradient and an all-zero mask,
+   two calls always bit-equal; the L-inf PGD update K5 at [1, 3, 512, 512]
+   and [8, 3, 512, 512] in f32 (bit-equal) and bf16 (within 4e-3), at a
+   ragged size and on a misaligned view -- with each one's time, the plain
+   version's, a single PyTorch call's where one computes the same function
+   (SDPA's forward for K1, SDPA's backward for K2 and K3 together), and the
+   least time the card could take (the bound; f32 attention at the 3xTF32
+   rate, 495/3 TFLOP/s).  Times are CUDA-event means over back-to-back
+   calls from the host and, apart from host time, medians of the kernels'
+   own spans in torch.profiler (K4 and K5 with the operands in L2 and
+   after a 128 MB write evicts them);
 4. the diffusion path: ``api.immunize`` with the ``TrainConfig`` defaults
    (SD-1.5 at 512x512, f32, L2 eps 32, 10 EOT reps, LCM K=4 -> 2 steps) for
    3 iterations, random weights made on the card from the seed, synthetic
@@ -79,6 +86,16 @@ ENC_STEPS = 5           # of the encoder attack
 #: 2 in its down block and 3 in its up block
 UNET_LONG_ATTN = 5
 LINF = dict(step_size=0.006, eps=0.1, min_value=-1.0, max_value=1.0)
+L2 = dict(step_size=7.5, eps=32.0, min_value=-1.0, max_value=1.0)     # the TrainConfig defaults
+#: a write this large between two timed calls leaves none of their operands
+#: in the 50 MB L2
+COLD_BYTES = 128 << 20
+#: device clock cycles (about 25 ms) that hold the device while the host
+#: launches the calls ``device_ms`` times
+HOLD_CYCLES = 50_000_000
+#: K4 runs one kernel where its grid fits on the card at once, else two
+K4_KERNELS = ("pgd_l2_resident_kernel", "pgd_l2_partials_kernel", "pgd_l2_write_kernel")
+K5_KERNELS = ("pgd_linf_kernel",)
 
 
 def card_line() -> str:
@@ -103,6 +120,50 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, kernels, reps: int = 50, cold: bool = False) -> dict:
+    """Device time of one call of ``fn`` from torch.profiler's kernel spans,
+    host time left out.  The kernels of a call are those whose names hold
+    one of ``kernels``, in launch order; every call must run the same ones.
+    Over ``reps`` calls after one warm-up: the median span from the start
+    of a call's first kernel to the end of its last (``ms``), each kernel's
+    median duration (``kernels_ms``) and, for two kernels, the median gap
+    from the end of the first to the start of the second (negative where
+    they overlap).  The calls queue behind a device sleep that outlasts
+    their launching, so no gap waits on the host: a kernel of a few µs takes
+    longer to launch than to run.  Warm: calls back to back, the operands in
+    L2.  Cold: a ``COLD_BYTES`` write before each call evicts them."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.empty(COLD_BYTES // 4, device="cuda") if cold else None
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(HOLD_CYCLES)
+        for _ in range(reps):
+            if cold:
+                scratch.zero_()
+            fn()
+        torch.cuda.synchronize()
+    # device events by (start, end, name): the profiler may list one more than once
+    spans = sorted({(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                    if str(e.device_type).endswith("CUDA") and any(k in e.name for k in kernels)})
+    k = len(spans) // reps
+    require(k > 0 and len(spans) == reps * k, f"{kernels}: {len(spans)} spans for {reps} calls")
+    calls = [spans[i:i + k] for i in range(0, len(spans), k)]
+    names = [[next(n for n in kernels if n in span[2]) for span in c] for c in calls]
+    require(all(n == names[0] for n in names), f"{kernels}: the calls ran other kernels")
+    out = {"ms": statistics.median(c[-1][1] - c[0][0] for c in calls) / 1e3,
+           "kernels_ms": {name: statistics.median(c[i][1] - c[i][0] for c in calls) / 1e3
+                          for i, name in enumerate(names[0])},
+           "reps": reps, "cold": cold}
+    if k == 2:
+        out["gap_ms"] = statistics.median(c[1][0] - c[0][1] for c in calls) / 1e3
+    return out
+
+
 def bound_ms(flops: float, nbytes: float, peak: float):
     """The least time for the work: the larger of operations over the peak
     rate and bytes over the memory rate; and which one it is."""
@@ -112,6 +173,25 @@ def bound_ms(flops: float, nbytes: float, peak: float):
 
 def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
+
+
+def bf16_ulp(t):
+    """One bf16 ulp at each value of ``t`` (8 significant bits)."""
+    import torch
+
+    _, e = torch.frexp(t.float().abs())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), (e - 8).float())
+
+
+def misaligned_copy(t):
+    """``t``'s values in a view one element past a 16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    out = buf[1:].view(t.shape)
+    require(out.data_ptr() % 16 != 0, "the misaligned view is aligned")
+    return out
 
 
 def require(cond: bool, what) -> None:
@@ -127,12 +207,15 @@ def ptxas_summary(report: str) -> list:
         if "Compiling entry function" in line:
             mangled, name, spill = line.split("'")[1], None, 0
             for tag in ("flash_fwd_kernel", "flash_bwd_kv_kernel", "flash_bwd_q_kernel",
-                        "pgd_l2_kernel", "pgd_linf_kernel"):
+                        "pgd_l2_resident_kernel", "pgd_l2_partials_kernel",
+                        "pgd_l2_write_kernel", "pgd_linf_kernel"):
                 if tag in mangled:
                     rest = mangled.split(tag)[1]
                     m = re.match(r"I(f|13__nv_bfloat16)((?:Li\d+E)*)E", rest)
+                    e = re.match(r"INS_\d+(F32|BF16)ElemE(Lb1E)?", rest)
                     args = ([{"f": "f32"}.get(m[1], "bf16")] + re.findall(r"Li(\d+)E", m[2])
-                            if m else [rest[1:40]])
+                            if m else [e[1].lower()] + (["mask"] if e[2] else []) if e
+                            else [rest[1:40]])
                     name = f"{tag}<{', '.join(args)}>"
         elif "bytes spill stores" in line:
             nums = [int(tok) for tok in line.replace(",", " ").split() if tok.isdigit()]
@@ -198,6 +281,14 @@ def check_flash(fa, shape, dtype, gen, times: bool) -> dict:
     }
     out["peak_tflops"] = peak / 1e12
     out["ms"]["bwd"] = out["ms"]["bwd_kv"] + out["ms"]["bwd_q"]
+    if dtype == torch.float32:
+        out["device_ms"] = {
+            "fwd": device_ms(lambda: fa.flash_fwd(q, k, v), ("flash_fwd_kernel",), reps)["ms"],
+            "bwd_kv": device_ms(lambda: fa.flash_bwd_kv(q, k, v, do, lse_ref, delta),
+                                ("flash_bwd_kv_kernel",), reps)["ms"],
+            "bwd_q": device_ms(lambda: fa.flash_bwd_q(q, k, v, do, lse_ref, delta),
+                               ("flash_bwd_q_kernel",), reps)["ms"],
+        }
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     out["library_ms"] = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)}
     with torch.enable_grad():
@@ -243,26 +334,92 @@ def check_flash_refuses_misaligned(fa) -> None:
         raise AssertionError(f"{fn.__name__} took a tensor off a 16-byte boundary")
 
 
-def check_pgd(pk, gen, mask: bool) -> dict:
+def l2_inputs(gen, shape, case: str, mask: bool):
+    """K4's inputs in f32 (x, grad, src, mask or None), by ``case``:
+    ``random``: x and src independent, an iterate far outside the ball;
+    ``radii``: x = src + delta with ||delta|| of sample b the b-th of 0.3,
+    0.8, 1, 1.2, 3, 0.5, 1, 10 eps, so that some samples are projected and
+    some are not; ``on-ball``: ||x - src|| = eps, sample 0's gradient
+    pointing outward (-delta) and sample 1's inward (delta);
+    ``zero-grad``, ``zero-mask``: ||delta|| = 1.5 eps and a zero gradient or
+    an all-zero mask."""
     import torch
 
-    x = torch.randn(IMAGE_SHAPE, generator=gen, device="cuda") * 0.3
-    g = torch.randn(IMAGE_SHAPE, generator=gen, device="cuda")
-    src = (torch.randn(IMAGE_SHAPE, generator=gen, device="cuda") * 0.4).clamp(-1, 1)
-    m = (torch.rand((1, 1, 512, 512), generator=gen, device="cuda") > 0.5).float() if mask else None
-    args = (x, g, src, 7.5, 32.0, -1.0, 1.0)
+    b, eps = shape[0], L2["eps"]
+    src = (torch.randn(shape, generator=gen, device="cuda") * 0.4).clamp(-1, 1)
+    g = torch.randn(shape, generator=gen, device="cuda")
+    m = ((torch.rand((b, 1, *shape[2:]), generator=gen, device="cuda") > 0.5).float()
+         if mask else None)
+    if case == "random":
+        return torch.randn(shape, generator=gen, device="cuda") * 0.3, g, src, m
+    radii = {"radii": (0.3, 0.8, 1.0, 1.2, 3.0, 0.5, 1.0, 10.0),
+             "on-ball": (1.0,)}.get(case, (1.5,))
+    delta = torch.randn(shape, generator=gen, device="cuda", dtype=torch.float64)
+    r = torch.tensor([radii[i % len(radii)] * eps for i in range(b)], dtype=torch.float64,
+                     device="cuda")
+    delta *= (r / delta.flatten(1).norm(dim=1)).view(b, 1, 1, 1)
+    x = (src.double() + delta).float()
+    if case == "on-ball":
+        g = (x - src) * torch.tensor([-1.0, 1.0], device="cuda")[:b].view(b, 1, 1, 1)
+    elif case == "zero-grad":
+        g = torch.zeros_like(g)
+    elif case == "zero-mask":
+        m = torch.zeros_like(m)
+    return x, g, src, m
+
+
+def check_l2(pk, gen, shape, dtype, mask: bool, case: str, misaligned: bool = False,
+             times: bool = False) -> dict:
+    """K4 against ``l2_perturbation_step`` at the TrainConfig's step and eps:
+    in f32 within 1e-5; in bf16 within one bf16 ulp of the plain version
+    computed in f32 on the same bf16 inputs and rounded once (K4 computes in
+    f32 and rounds once), or within the f32 tolerance 1e-5 where that is
+    more: an f32 output near 0 carries the rounding of the norms' sums
+    (up to ~1e-7), more than one bf16 ulp of it, so its rounding may land
+    further off.  The count of elements beyond one ulp, and the largest
+    value among them, are recorded.  Two calls on the same inputs must give
+    the same bits.  ``misaligned`` puts every operand (the mask too) one
+    element past a 16-byte boundary: K4 takes its scalar path there."""
+    import torch
+
+    x, g, src, m = l2_inputs(gen, shape, case, mask)
+    x, g, src = (t.to(dtype) for t in (x, g, src))
+    if misaligned:
+        x, g, src = (misaligned_copy(t) for t in (x, g, src))
+        m = None if m is None else misaligned_copy(m)
+    args = (x, g, src, *L2.values())
     got = pk.pgd_l2_update(*args, mask=m)
-    want = pk.l2_perturbation_step(*args, m)
+    again = pk.pgd_l2_update(*args, mask=m)
+    want = pk.l2_perturbation_step(*(t.float() for t in (x, g, src)), *L2.values(), m)
     torch.cuda.synchronize()
-    err, tol = max_err(got, want), 1e-5
-    if not err <= tol:
-        raise AssertionError(f"pgd_l2_update mask={mask}: max abs err {err:.3e} over {tol:.0e}")
-    n = x.numel()
-    nbytes = 4 * n * 4 + (m.numel() * 4 if mask else 0)
-    return {"mask": mask, "err": err, "tol": tol,
-            "ms": cuda_ms(lambda: pk.pgd_l2_update(*args, mask=m), 20),
-            "plain_ms": cuda_ms(lambda: pk.l2_perturbation_step(*args, m), 20),
-            "bound": bound_ms(15.0 * n, nbytes, H100_F32_FLOPS)}
+    what = (f"pgd_l2_update {list(shape)} {str(dtype).split('.')[-1]} mask={mask} {case}"
+            f"{' misaligned' if misaligned else ''}")
+    require(torch.equal(got, again), f"{what}: two calls differ")
+    if dtype == torch.float32:
+        err, tol = max_err(got, want), 1e-5
+        require(err <= tol, f"{what}: max abs err {err:.3e} over {tol:.0e}")
+    else:
+        want = want.to(dtype)
+        err, tol = max_err(got, want), "max(1 bf16 ulp, 1e-5)"
+        diff, ulp = (got.float() - want.float()).abs(), bf16_ulp(want)
+        beyond = diff > ulp
+        require(bool((diff <= ulp.clamp(min=1e-5)).all()),
+                f"{what}: off by more than max(one bf16 ulp, 1e-5) (max abs err {err:.3e})")
+        tol += (f"; {int(beyond.sum())} beyond one ulp, at |value| <= "
+                f"{want.float().abs()[beyond].max().item() if beyond.any() else 0.0:.1e}")
+    out = {"what": what, "shape": list(shape), "dtype": str(dtype).split(".")[-1], "mask": mask,
+           "case": case, "misaligned": misaligned, "err": err, "tol": tol}
+    if times:
+        n, item = x.numel(), x.element_size()
+        call = lambda: pk.pgd_l2_update(*args, mask=m)                       # noqa: E731
+        out.update(host_call_ms=cuda_ms(call, 50), device=device_ms(call, K4_KERNELS),
+                   device_cold=device_ms(call, K4_KERNELS, cold=True),
+                   plain_ms=cuda_ms(lambda: pk.l2_perturbation_step(*args, m), 20),
+                   # ~15 operations per element; x, grad, src (and the mask) read, out written
+                   bound=bound_ms(15.0 * n, 4.0 * n * item + (m.numel() * 4 if mask else 0),
+                                  H100_F32_FLOPS),
+                   blocks=shape[0] * pk.l2_chunks(shape[2] * shape[3], item))
+    return out
 
 
 def check_linf(pk, gen, shape, dtype, times: bool, misaligned: bool = False,
@@ -282,12 +439,7 @@ def check_linf(pk, gen, shape, dtype, times: bool, misaligned: bool = False,
         x.view(-1)[:: 97] = float("nan")
     x, g, src = (t.to(dtype) for t in (x, g, src))
     if misaligned:
-        def shifted(t):
-            buf = torch.empty(n + 1, dtype=dtype, device="cuda")
-            buf[1:].copy_(t.reshape(-1))
-            return buf[1:].view(shape)
-        x, g, src = shifted(x), shifted(g), shifted(src)
-        require(x.data_ptr() % 16 != 0, "the misaligned view is aligned")
+        x, g, src = (misaligned_copy(t) for t in (x, g, src))
     args = (x, g, src, *LINF.values())
     got = pk.pgd_linf_update(*args)
     want = pk.linf_perturbation_step(*args)
@@ -302,16 +454,94 @@ def check_linf(pk, gen, shape, dtype, times: bool, misaligned: bool = False,
     if f32:
         zero = (g == 0) & fin
         require(torch.equal(got[zero], x[zero]), f"{what}: a zero gradient moved x")
-    out = {"shape": list(shape), "dtype": str(dtype).split(".")[-1], "misaligned": misaligned,
-           "nan": nan, "err": err, "tol": tol}
+    dt = str(dtype).split(".")[-1]
+    out = {"what": f"pgd_linf_update {list(shape)} {dt}", "shape": list(shape), "dtype": dt,
+           "misaligned": misaligned, "nan": nan, "err": err, "tol": tol}
     if times:
         item = x.element_size()
-        out.update(ms=cuda_ms(lambda: pk.pgd_linf_update(*args), 50),
+        call = lambda: pk.pgd_linf_update(*args)                             # noqa: E731
+        out.update(host_call_ms=cuda_ms(call, 50), device=device_ms(call, K5_KERNELS),
+                   device_cold=device_ms(call, K5_KERNELS, cold=True),
                    plain_ms=cuda_ms(lambda: pk.linf_perturbation_step(*args), 50),
                    # ~9 operations per element; 3 reads and 1 write
                    bound=bound_ms(9.0 * n, 4.0 * n * item,
                                   H100_F32_FLOPS if f32 else H100_BF16_FLOPS))
     return out
+
+
+#: K4's timed cases: (key, shape, dtype, mask, inputs)
+K4_TIMED = (("f32", IMAGE_SHAPE, "float32", False, "random"),
+            ("f32-mask", IMAGE_SHAPE, "float32", True, "random"),
+            ("batch8-f32", ENC_IMAGE_SHAPE, "float32", False, "radii"),
+            ("bf16", IMAGE_SHAPE, "bfloat16", False, "random"))
+RAGGED_L2 = (2, 3, 33, 35)          # H*W = 1155: no multiple of a vector or of a chunk
+ON_BALL_L2 = (2, 3, 512, 512)
+#: K4's further checks: (shape, dtype, mask, inputs, misaligned)
+K4_CHECKS = (
+    (ENC_IMAGE_SHAPE, "float32", True, "radii", False),
+    (ENC_IMAGE_SHAPE, "bfloat16", True, "radii", False),
+    (IMAGE_SHAPE, "bfloat16", True, "random", False),
+    *((RAGGED_L2, dt, mask, "radii", False) for dt in ("float32", "bfloat16")
+      for mask in (False, True)),
+    (IMAGE_SHAPE, "float32", True, "random", True),
+    (IMAGE_SHAPE, "bfloat16", False, "random", True),
+    (RAGGED_L2, "float32", True, "radii", True),
+    (RAGGED_L2, "bfloat16", False, "radii", True),
+    (ON_BALL_L2, "float32", False, "on-ball", False),
+    (ON_BALL_L2, "float32", True, "on-ball", False),
+    (ON_BALL_L2, "bfloat16", False, "on-ball", False),
+    (ON_BALL_L2, "float32", False, "zero-grad", False),
+    (ON_BALL_L2, "float32", True, "zero-mask", False),
+)
+
+
+def print_update(r: dict) -> None:
+    """One timed K4 or K5 case, in microseconds: device time warm (where a
+    call runs two kernels, each one and the gap between them) and cold, the
+    host-call mean, the plain version and the bound."""
+    d, c, (bound, by) = r["device"], r["device_cold"], r["bound"]
+    parts = ""
+    if "gap_ms" in d:
+        parts = (" (" + ", ".join(f"{k.split('_kernel')[0]} {v * 1e3:.2f}"
+                                  for k, v in d["kernels_ms"].items())
+                 + f", gap {d['gap_ms'] * 1e3:.2f})")
+    blocks = f"; {r['blocks']} blocks" if "blocks" in r else ""
+    print(f"[kernels] {r['what']}: max abs err {r['err']:.2e} (tol {r['tol']}); device us warm "
+          f"{d['ms'] * 1e3:.2f}{parts}, cold {c['ms'] * 1e3:.2f} ({bound / d['ms']:.0%} / "
+          f"{bound / c['ms']:.0%} of the bound); host-call mean us {r['host_call_ms'] * 1e3:.2f}; "
+          f"plain us {r['plain_ms'] * 1e3:.2f}; bound us {bound * 1e3:.2f} ({by}){blocks}",
+          flush=True)
+
+
+def check_updates(pk, gen) -> dict:
+    """The PGD updates on the card: K4 at its timed shapes and its further
+    cases (per-sample norms, ragged, misaligned, on the ball, zero gradient,
+    zero mask; every case two calls bit-equal), then K5 as before, with
+    device and host times."""
+    import torch
+
+    l2 = {}
+    for key, shape, dtype, mask, case in K4_TIMED:
+        l2[key] = check_l2(pk, gen, shape, getattr(torch, dtype), mask, case, times=True)
+        print_update(l2[key])
+    checks = [check_l2(pk, gen, shape, getattr(torch, dtype), mask, case, misaligned)
+              for shape, dtype, mask, case, misaligned in K4_CHECKS]
+    for r in checks:
+        print(f"[kernels] {r['what']}: max abs err {r['err']:.2e} (tol {r['tol']}); two calls "
+              "bit-equal", flush=True)
+    linf = {}
+    for shape in (IMAGE_SHAPE, ENC_IMAGE_SHAPE):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = linf[f"{shape}-{str(dtype).split('.')[-1]}"] = check_linf(pk, gen, shape, dtype,
+                                                                          times=True)
+            print_update(r)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_linf(pk, gen, (1, 3, 33, 35), dtype, times=False, nan=True)
+        check_linf(pk, gen, IMAGE_SHAPE, dtype, times=False, misaligned=True)
+        check_linf(pk, gen, (1, 3, 33, 35), dtype, times=False, misaligned=True)
+    print("[kernels] pgd_linf_update ragged [1, 3, 33, 35] with NaN in x, and misaligned views, "
+          "agree (f32 bit-equal, bf16 within 4e-3)", flush=True)
+    return {"l2": l2, "l2_checks": checks, "linf": linf}
 
 
 def one_iteration_inputs(model, cfg, source, target):
@@ -682,26 +912,7 @@ def main(argv) -> int:
     check_flash_refuses_misaligned(fa)
     print("[kernels] flash ragged-tail shapes (T = 70..1000, D = 40/64/80/512, f32 and bf16) "
           "agree; K1-K3 refuse a misaligned tensor", flush=True)
-    pgd = [check_pgd(pk, gen, mask) for mask in (False, True)]
-    for r in pgd:
-        print(f"[kernels] pgd_l2_update {IMAGE_SHAPE} mask={r['mask']}: max abs err "
-              f"{r['err']:.2e} (tol {r['tol']:.0e}); ms {r['ms']:.4f}; plain ms "
-              f"{r['plain_ms']:.4f}; bound ms {r['bound'][0]:.4f} ({r['bound'][1]})", flush=True)
-    linf = {}
-    for shape in (IMAGE_SHAPE, ENC_IMAGE_SHAPE):
-        for dtype in (torch.float32, torch.bfloat16):
-            r = linf[f"{shape}-{str(dtype).split('.')[-1]}"] = check_linf(pk, gen, shape, dtype,
-                                                                          times=True)
-            print(f"[kernels] pgd_linf_update {shape} {r['dtype']}: max abs err {r['err']:.2e} "
-                  f"(tol {r['tol']:.0e}); ms {r['ms']:.4f}; plain ms {r['plain_ms']:.4f}; "
-                  f"bound ms {r['bound'][0]:.4f} ({r['bound'][1]})", flush=True)
-    for dtype in (torch.float32, torch.bfloat16):
-        check_linf(pk, gen, (1, 3, 33, 35), dtype, times=False, nan=True)
-        check_linf(pk, gen, IMAGE_SHAPE, dtype, times=False, misaligned=True)
-        check_linf(pk, gen, (1, 3, 33, 35), dtype, times=False, misaligned=True)
-    print("[kernels] pgd_linf_update ragged [1, 3, 33, 35] with NaN in x, and misaligned views, "
-          "agree (f32 bit-equal, bf16 within 4e-3)", flush=True)
-    report["flash"], report["pgd"], report["linf"] = flash, pgd, linf
+    report["flash"], report["updates"] = flash, check_updates(pk, gen)
 
     kernels = fa.KERNELS + pk.KERNELS
     with tempfile.TemporaryDirectory() as tmp:
@@ -793,7 +1004,7 @@ def main(argv) -> int:
         del images
         free_card()
 
-    report["kernels"] = rows = kernel_rows(flash, pgd, linf, report)
+    report["kernels"] = rows = kernel_rows(flash, report["updates"], report)
     if report_path is not None:
         report_path.parent.mkdir(parents=True, exist_ok=True)
         report_path.write_text(json.dumps(report, indent=1, default=str))
@@ -805,10 +1016,13 @@ def main(argv) -> int:
     return 0
 
 
-def kernel_rows(flash, pgd, linf, report) -> list:
+def kernel_rows(flash, updates, report) -> list:
     """One row per kernel and shape for the result's kernels line; each row's
     ``launches`` is the count of the path named by ``path``, read just after
-    that path ran."""
+    that path ran.  ``ms`` is the CUDA-event mean over back-to-back calls
+    from the host (host time included); ``device_ms`` the median of the
+    kernels' own spans with the operands in L2, and for K4 and K5
+    ``device_cold_ms`` the same after a 128 MB write."""
     src_fa = "tml_image_editing_defense_torch/csrc/flash_attention.cu"
     tpu_fa = "tml_image_editing_defense_tpu/ops/flash_attention.py"
     src_pgd = "tml_image_editing_defense_torch/csrc/pgd_update.cu"
@@ -826,29 +1040,27 @@ def kernel_rows(flash, pgd, linf, report) -> list:
             rows.append({
                 "name": name, "route": "cuda", "source": src_fa, "replaces": f"{tpu_fa}:{line}",
                 "launches": launches[path][sym], "max_abs_err": r["err"][key],
-                "ms": r["ms"][key], "plain_ms": r["plain_ms"][key],
+                "ms": r["ms"][key], "device_ms": r["device_ms"][key],
+                "plain_ms": r["plain_ms"][key],
                 "bound_ms": r["bound"][key][0], "bound_by": r["bound"][key][1],
                 "library_ms": r["library_ms"]["fwd" if key == "fwd" else "bwd"],
                 "library_call": ("scaled_dot_product_attention forward" if key == "fwd" else
                                  "scaled_dot_product_attention backward: K2 and K3 together"),
                 "path": path, "shape": list(shape), "dtype": "float32", "ok": True,
             })
-    r = pgd[0]
-    rows.append({
-        "name": "pgd_l2_update", "route": "cuda", "source": src_pgd, "replaces": f"{tpu_pgd}:118",
-        "launches": launches["diffusion"]["tid_pgd_l2_update"], "max_abs_err": r["err"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-        "bound_by": r["bound"][1], "library_ms": None, "path": "diffusion",
-        "shape": list(IMAGE_SHAPE), "dtype": "float32", "ok": True,
-    })
-    for path, shape in (("inpaint", IMAGE_SHAPE), ("encoder", ENC_IMAGE_SHAPE)):
-        r = linf[f"{shape}-float32"]
+    update_rows = [("pgd_l2_update", "diffusion", "tid_pgd_l2_update", 118,
+                    updates["l2"]["f32"])]
+    update_rows += [("pgd_linf_update", path, "tid_pgd_linf_update", 64,
+                     updates["linf"][f"{shape}-float32"])
+                    for path, shape in (("inpaint", IMAGE_SHAPE), ("encoder", ENC_IMAGE_SHAPE))]
+    for name, path, sym, line, r in update_rows:
         rows.append({
-            "name": "pgd_linf_update", "route": "cuda", "source": src_pgd,
-            "replaces": f"{tpu_pgd}:64", "launches": launches[path]["tid_pgd_linf_update"],
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None,
-            "path": path, "shape": list(shape), "dtype": "float32", "ok": True,
+            "name": name, "route": "cuda", "source": src_pgd, "replaces": f"{tpu_pgd}:{line}",
+            "launches": launches[path][sym], "max_abs_err": r["err"], "ms": r["host_call_ms"],
+            "device_ms": r["device"]["ms"], "device_cold_ms": r["device_cold"]["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None, "path": path, "shape": r["shape"], "dtype": "float32",
+            "ok": True,
         })
     return rows
 

@@ -29,8 +29,13 @@ from tml_image_editing_defense_torch.ops._lib import (
     stream_ptr,
 )
 
-PGD_L2_UPDATE = CudaKernel("tid_pgd_l2_update", [P, P, P, P, P, I, I, I, I, F, F, F, F, P])
+PGD_L2_UPDATE = CudaKernel("tid_pgd_l2_update", [P, P, P, P, P, P, I, I, I, I, F, F, F, F, P])
 PGD_LINF_UPDATE = CudaKernel("tid_pgd_linf_update", [P, P, P, P, L, I, F, F, F, F, P])
+
+#: Bytes of one image plane that one block of K4 takes (``kL2Threads`` x 16
+#: in ``csrc/pgd_update.cu``): 1024 f32 or 2048 bf16 pixels, every channel.
+#: Each such chunk of a sample leaves one row of four partial sums.
+L2_CHUNK_BYTES = 4096
 
 
 def pgd_l2_update(
@@ -43,7 +48,9 @@ def pgd_l2_update(
     max_value: float,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Fused L2 PGD update of NCHW images, one launch (reference main.py:254-268).
+    """Fused L2 PGD update of NCHW images in one call (reference
+    main.py:254-268): the partial sums of every chunk, then the write; one
+    kernel where its grid fits on the card at once, else two.
 
     ``mask`` ([B, 1, H, W]) scales the normalised gradient, broadcast over
     channels.  The plain ``l2_perturbation_step`` runs for CPU tensors."""
@@ -61,14 +68,22 @@ def pgd_l2_update(
         if tuple(mask.shape) != (b, 1, h, w) or mask.device != x_adv.device:
             raise ValueError(f"pgd_l2_update: mask must be [{b}, 1, {h}, {w}] on "
                              f"{x_adv.device}, got {tuple(mask.shape)} on {mask.device}")
-        mask = mask.to(torch.float32).contiguous()
+        mask = mask.to(torch.float32).contiguous()      # no copy when already so
         mask_ptr = mask.data_ptr()
     out = torch.empty_like(x_adv)
-    PGD_L2_UPDATE(x_adv.data_ptr(), grad.data_ptr(), x_src.data_ptr(), mask_ptr,
-                  out.data_ptr(), b, c * h * w, h * w, int(x_adv.dtype == torch.bfloat16),
-                  float(step_size), float(eps), float(min_value), float(max_value),
-                  stream_ptr(x_adv))
+    if out.numel():
+        partials = torch.empty((b, l2_chunks(h * w, x_adv.element_size()), 4),
+                               dtype=torch.float32, device=x_adv.device)
+        PGD_L2_UPDATE(x_adv.data_ptr(), grad.data_ptr(), x_src.data_ptr(), mask_ptr,
+                      partials.data_ptr(), out.data_ptr(), b, c, h * w,
+                      int(x_adv.dtype == torch.bfloat16), float(step_size), float(eps),
+                      float(min_value), float(max_value), stream_ptr(x_adv))
     return out
+
+
+def l2_chunks(hw: int, item_size: int) -> int:
+    """K4's chunks per sample: pixels of one plane over those of a chunk."""
+    return -(-hw // (L2_CHUNK_BYTES // item_size))
 
 
 def pgd_linf_update(
