@@ -14,8 +14,9 @@ Phases, each fatal on failure:
 3. hold every kernel against its plain PyTorch version on the card at the
    main paths' shapes -- flash attention K1 (forward), K2 (dK, dV), K3 (dQ)
    at [2, 4096, 8, 40] (UNet 64x64 level) and [1, 4096, 1, 512] (VAE
-   mid-block) in f32 and bf16, and at [8, 4096, 1, 512] (the encoder
-   attack's batched VAE mid-block) in f32; K1-K3 at ragged T (70..1000)
+   mid-block) in f32 and bf16, at [8, 4096, 1, 512] (the encoder
+   attack's batched VAE mid-block) in f32, and at the evaluation's
+   [8, 4096, 8, 40] and [4, 4096, 1, 512] in f32; K1-K3 at ragged T (70..1000)
    at every compiled head dim (40, 64, 80, 512: every tile plan of K2/K3)
    in f32 and bf16, and K1-K3's refusal of a misaligned tensor; the L2 PGD
    update K4 at [1, 3, 512, 512] with and without a 0/1 mask, at
@@ -51,8 +52,31 @@ Phases, each fatal on failure:
 6. the encoder attack at SD-1.5 512x512, batch 8, L-inf (step 0.006, eps
    0.1), stochastic encode, 5 steps: finite losses, the ball, s/step, peak
    memory and the launches the code implies;
-7. a JSON line naming every kernel with its launches, error and times,
-   then the card's name and power limit, then the result line.
+7. resume: the diffusion path again for 2 iterations with
+   ``checkpoint_interval=1`` (the last save, after the second iteration),
+   then ``api.immunize`` with ``resume_from`` that state on the same model,
+   which runs the third iteration only: its x_adv within 1e-3 of the
+   uninterrupted run's (cuDNN's convolution gradients are not
+   deterministic, so not bit for bit), its launches those of one
+   iteration, and its seconds;
+8. the evaluate gate: one (clean, adv) pair through ``Img2ImgPipeline``
+   with K1, and on the same weights with plain attention (a model built with
+   ``attn_kv_chunk=None``), a 10-step PLMS plan at strength 0.6, the same
+   draws: the images in [0, 1] finite and within 1e-3;
+9. evaluate: ``cli.main(["evaluate", ...])`` on the diffusion path's
+   ``adversarial_image.png`` and ``noise.npz`` at the ``InferenceConfig``
+   defaults (SD-1.5 at 512x512, f32, PLMS with 100 steps at strength 0.6:
+   61 UNet calls an edit, guidance 7.5), two of ``INFERENCE_PROMPTS`` and
+   one synthetic validation image: 4 cells in 2 batches of 2 pairs, K1 at
+   [8, 4096, 8, 40] (UNet) and [4, 4096, 1, 512] (VAE), held against its
+   plain version and timed at both shapes in phase 3; the grids written,
+   seconds per batch and per pair, peak memory and K1's launches; then one
+   batch of 2 pairs under ``torch.profiler``;
+   after each path, once its objects are dropped, at most HELD_LIMIT_GB may
+   stay allocated on the card (a model left alive is 4.3 GB), and each
+   path's peak is counted above what was allocated when it began;
+10. a JSON line naming every kernel with its launches on every path, error
+   and times, then the card's name and power limit, then the result line.
 
 ``--report PATH`` also writes the full report there as JSON.
 """
@@ -68,6 +92,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 H100_F32_FLOPS = 67e12          # CUDA-core f32, dense (NVIDIA H100 SXM data sheet)
@@ -82,6 +107,11 @@ ENC_BATCH = 8
 ENC_ATTN_SHAPE, ENC_IMAGE_SHAPE = (ENC_BATCH, 4096, 1, 512), (ENC_BATCH, 3, 512, 512)
 ITERATIONS = 3          # of each immunize path
 ENC_STEPS = 5           # of the encoder attack
+#: evaluate: api.evaluate's eval_batch_size, 2 cells of (clean, adv) x CFG
+#: through the UNet and (clean, adv) x cells through the VAE
+EVAL_BATCH = 2
+EVAL_UNET_SHAPE, EVAL_VAE_SHAPE = (4 * EVAL_BATCH, 4096, 8, 40), (2 * EVAL_BATCH, 4096, 1, 512)
+EVAL_PROMPTS = 2        # the first two of INFERENCE_PROMPTS
 #: long self-attentions per SD-1.5 UNet call: the 64x64 level's transformers,
 #: 2 in its down block and 3 in its up block
 UNET_LONG_ATTN = 5
@@ -96,6 +126,8 @@ HOLD_CYCLES = 50_000_000
 #: K4 runs one kernel where its grid fits on the card at once, else two
 K4_KERNELS = ("pgd_l2_resident_kernel", "pgd_l2_partials_kernel", "pgd_l2_write_kernel")
 K5_KERNELS = ("pgd_linf_kernel",)
+#: what may stay allocated on the card once a path's objects are dropped
+HELD_LIMIT_GB = 1.0
 
 
 def card_line() -> str:
@@ -665,28 +697,18 @@ def kernel_group(name: str) -> str:
     return "elementwise and other"
 
 
-def profile_iteration(model, cfg, inputs) -> dict:
-    """One PGD iteration of ``cfg``'s path under torch.profiler, after one
-    warm-up: device time by kernel and by group, and the share of the
-    iteration's wall time in which the device ran no kernel (the profiler's
-    own overhead lengthens the wall time, so that share is an upper bound)."""
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: device time by kernel and by
+    group, and the share of the call's wall time in which the device ran no
+    kernel (the profiler's own overhead lengthens the wall time, so that
+    share is an upper bound)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from tml_image_editing_defense_torch.attack.inpaint import make_inpaint_pgd_step
-    from tml_image_editing_defense_torch.attack.pgd import make_pgd_step
-
-    sampler, plan, data, draws = inputs
-    source = data.source
-    if cfg.attack_mode == "inpaint":
-        step = make_inpaint_pgd_step(model, sampler, plan, cfg)
-    else:
-        step = make_pgd_step(model, sampler, plan, cfg, decode_vis=False)
-    step(source, data, draws)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(source, data, draws)
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     # device events by (name, start): the profiler may list one more than once
@@ -706,6 +728,49 @@ def profile_iteration(model, cfg, inputs) -> dict:
             "idle_share": max(0.0, 1.0 - device_ms / (wall_s * 1e3)),
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels_ms": top}
+
+
+def profile_iteration(model, cfg, inputs) -> dict:
+    """One PGD iteration of ``cfg``'s path under torch.profiler, after one
+    warm-up (:func:`profile_call`)."""
+    from tml_image_editing_defense_torch.attack.inpaint import make_inpaint_pgd_step
+    from tml_image_editing_defense_torch.attack.pgd import make_pgd_step
+
+    sampler, plan, data, draws = inputs
+    if cfg.attack_mode == "inpaint":
+        step = make_inpaint_pgd_step(model, sampler, plan, cfg)
+    else:
+        step = make_pgd_step(model, sampler, plan, cfg, decode_vis=False)
+    step(data.source, data, draws)
+    return profile_call(lambda: step(data.source, data, draws))
+
+
+def profile_eval_batch(clean, adv) -> dict:
+    """One evaluation batch under torch.profiler (:func:`profile_call`):
+    ``edit_pairs`` of EVAL_BATCH cells on a model built as ``api.evaluate``
+    builds it, at the InferenceConfig defaults (PLMS, 100 steps at strength
+    0.6, guidance 7.5).  No warm-up call: the evaluate phase ran these
+    shapes in this process just before."""
+    import torch
+
+    from tml_image_editing_defense_torch.api import EVAL_ATTN_CHUNK
+    from tml_image_editing_defense_torch.configs import INFERENCE_PROMPTS, InferenceConfig
+    from tml_image_editing_defense_torch.models.model_zoo import build_model
+    from tml_image_editing_defense_torch.pipelines import Img2ImgPipeline
+
+    cfg = InferenceConfig()
+    model = build_model("sd15", image_size=cfg.image_size, device="cuda",
+                        attn_kv_chunk=EVAL_ATTN_CHUNK)
+    pipe = Img2ImgPipeline(model, sampler="plms")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    draws = [torch.randn((EVAL_BATCH, 2, *model.latent_shape[1:]), generator=gen, device="cuda")
+             for _ in range(2)]
+    pairs = pipe.prepare_image([clean, adv]).expand(EVAL_BATCH, 2, 3, cfg.image_size,
+                                                     cfg.image_size)
+    prompts = [f"{p}, detailed" for p in INFERENCE_PROMPTS[:EVAL_BATCH]]
+    return profile_call(lambda: pipe.edit_pairs(
+        prompts, pairs, *draws, num_inference_steps=cfg.n_steps,
+        guidance_scale=cfg.guidance_scale, strength=cfg.strength))
 
 
 def synthetic_image(path: Path, seed: int) -> None:
@@ -731,6 +796,7 @@ def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict) -> dict
 
     for kern in kernels:
         kern.launches = 0
+    before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     result = api.immunize(cfg)              # on the card: the default device
@@ -763,7 +829,8 @@ def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict) -> dict
     # rows of vis iterations (0 and n-1) carry the host clock; between them
     # lie n-1 iterations and one vis decode
     return {"wall_s": wall, "s_per_iteration_after_first": (rows[n - 1]["t"] - rows[0]["t"]) / (n - 1),
-            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+            "allocated_before_gb": before / 1e9,
             "history": result.history, "dist": dist, "launches": launches,
             "expected_launches": expected, "_result": result, "_src": src, "_tgt": tgt}
 
@@ -772,7 +839,7 @@ def encoder_path(kernels, images) -> dict:
     """The encoder attack on SD-1.5 at the images' size (512x512,
     batch 8), L-inf, stochastic encode, ENC_STEPS steps, after a one-step
     warm-up; counts set to 0 just before the target encode and read just
-    after the loop."""
+    after the loop; the peak counted from the model's build on."""
     import torch
 
     from tml_image_editing_defense_torch.attack.encoder_attack import (
@@ -782,6 +849,8 @@ def encoder_path(kernels, images) -> dict:
     from tml_image_editing_defense_torch.models.model_zoo import build_model
 
     src, tgt = images
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=src.device).manual_seed(0)
     model = build_model("sd15", image_size=src.shape[-1], device=src.device, generator=gen,
                         attn_kv_chunk=512)
@@ -797,7 +866,6 @@ def encoder_path(kernels, images) -> dict:
     torch.cuda.synchronize()
     for kern in kernels:
         kern.launches = 0
-    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         target_latent = model.encode_image(tgt)
     torch.cuda.synchronize()
@@ -817,9 +885,136 @@ def encoder_path(kernels, images) -> dict:
     require(dist <= 0.1 + 1e-6, f"encoder |x_adv - src|_inf = {dist} over eps")
     require(-1.0 <= x.min().item() and x.max().item() <= 1.0, "encoder x_adv left [-1, 1]")
     return {"s_per_step": loop_s / ENC_STEPS, "loop_s": loop_s,
-            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
             "losses": losses.tolist(), "dist": dist, "launches": launches,
             "expected_launches": expected}
+
+
+def resume_path(api, cfg, model, full_x, kernels, per_iteration: dict, tmp: Path) -> dict:
+    """The diffusion path interrupted and resumed on ``model``: ITERATIONS - 1
+    iterations with ``checkpoint_interval=1``, whose last save (after the
+    second iteration) says ITERATIONS - 1; then ``api.immunize`` from that
+    state, which runs the last iteration only, with every count set to 0
+    just before it and read just after.  Its launches: one iteration's,
+    the target encode and the last iteration's vis decode."""
+    import dataclasses
+
+    import torch
+
+    part = dataclasses.replace(cfg, output_path=tmp / "out_part",
+                               n_optimization_steps=ITERATIONS - 1, checkpoint_interval=1)
+    api.immunize(part, model=model)
+    state = part.output_path / "attack_state.npz"
+    res_cfg = dataclasses.replace(cfg, output_path=tmp / "out_resume")
+    for kern in kernels:
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = api.immunize(res_cfg, model=model, resume_from=state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {kern.symbol: kern.launches for kern in kernels}
+    expected = {kern.symbol: per_iteration.get(kern.symbol, 0) for kern in kernels}
+    expected["tid_flash_fwd"] += 2
+    require(launches == expected, ("resume", launches, expected))
+    require(len(res.history) == 1 and all(math.isfinite(v) for v in res.history[0].values()),
+            res.history)
+    rows = [json.loads(r) for r in (res_cfg.output_path / "metrics.jsonl").read_text().splitlines()]
+    require([r["step"] for r in rows] == [ITERATIONS - 1], rows)
+    diff = max_err(res.x_adv, full_x)
+    require(diff <= 1e-3, f"resumed x_adv off the uninterrupted run's by {diff:.3e} (gate 1e-3)")
+    return {"wall_s": wall, "iteration_row_t_s": rows[0]["t"], "x_adv_max_abs_diff": diff,
+            "history": res.history, "launches": launches, "expected_launches": expected}
+
+
+def evaluate_gate(model, clean, adv) -> dict:
+    """One (clean, adv) pair through ``Img2ImgPipeline`` on ``model`` (K1 in
+    the long self-attentions) and on a copy of its weights built with
+    ``attn_kv_chunk=None`` (plain attention everywhere): PLMS, 10 steps at
+    strength 0.6 (7 UNet calls: PLMS repeats one timestep), guidance 7.5,
+    the same noise and posterior draws.  The images in [0, 1] must be
+    finite and agree within 1e-3."""
+    import torch
+
+    from tml_image_editing_defense_torch.models.model_zoo import build_model
+    from tml_image_editing_defense_torch.pipelines import Img2ImgPipeline
+
+    dev = model.device
+    plain = build_model(model.family, image_size=model.image_size, device=dev,
+                        attn_kv_chunk=None)
+    for mine, theirs in zip((plain.unet, plain.vae, plain.text_models[0]),
+                            (model.unet, model.vae, model.text_models[0])):
+        mine.load_state_dict(theirs.state_dict())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    noise, eps = (torch.randn((2, *model.latent_shape[1:]), generator=gen, device=dev)
+                  for _ in range(2))
+    outs = []
+    for m in (model, plain):
+        pipe = Img2ImgPipeline(m, sampler="plms")
+        outs.append(pipe("frozen, detailed", [clean, adv], num_inference_steps=10, strength=0.6,
+                         guidance_scale=7.5, noise=noise, vae_eps=eps, output_type="pt"))
+    torch.cuda.synchronize()
+    out = {"unet_steps": pipe.plan(10, 0.6).num_steps, "max_abs_diff": max_err(*outs),
+           "finite": bool(torch.isfinite(outs[0]).all() and torch.isfinite(outs[1]).all()),
+           "mean_abs_diff": (outs[0] - outs[1]).abs().mean().item()}
+    require(out["finite"] and out["max_abs_diff"] <= 1e-3, f"evaluate gate: {out}")
+    return out
+
+
+def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, val_image: Path,
+                  tmp: Path) -> dict:
+    """``cli.main(["evaluate", ...])`` on the card at the InferenceConfig
+    defaults with two prompts, ``adv_dir``'s adversarial image and noise
+    pool, and one validation image; every count set to 0 just before and
+    read just after.  Per batch of 2 cells K1 runs once in the VAE encode,
+    once in the decode and 5 times in each of the 61 UNet calls."""
+    import torch
+    from PIL import Image
+
+    from tml_image_editing_defense_torch.configs import INFERENCE_PROMPTS, InferenceConfig
+    from tml_image_editing_defense_torch.core.samplers import PLMSSampler
+    from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
+
+    (tmp / "val.txt").write_text(f"{val_image}\n")
+    out_dir = tmp / "eval"
+    prompts = INFERENCE_PROMPTS[:EVAL_PROMPTS]
+    args = ["evaluate", "--adversarial-image", str(adv_dir / "adversarial_image.png"),
+            "--noise-pool", str(adv_dir / "noise.npz"), "--source-image-path", str(source),
+            "--target-image-path", str(target), "--output-path", str(out_dir), "--n-noise", "1",
+            "--validation-images-path", str(tmp / "val.txt"), "--prompts", *prompts]
+    for kern in kernels:
+        kern.launches = 0
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(args)                     # on the card: the CLI's default device
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"evaluate exited {rc}")
+    launches = {kern.symbol: kern.launches for kern in kernels}
+    cfg = InferenceConfig()
+    unet_steps = PLMSSampler(make_noise_schedule()).plan(cfg.n_steps, cfg.strength).num_steps
+    batches = 2                             # the source image's cells, the validation image's
+    at_shape = {"unet": batches * unet_steps * UNET_LONG_ATTN, "vae": batches * 2}
+    expected = {kern.symbol: 0 for kern in kernels}
+    expected["tid_flash_fwd"] = sum(at_shape.values())
+    require(launches == expected, ("evaluate", launches, expected))
+    rows = [json.loads(r) for r in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    dispatch = [r["edit_dispatch_s"] for r in rows if "edit_dispatch_s" in r]
+    pairs = [int(r["edit_pairs"]) for r in rows if "edit_dispatch_s" in r]
+    require(len(dispatch) == batches and pairs == [EVAL_BATCH] * batches, rows)
+    size = cfg.image_size
+    for p in prompts:
+        stem = "-".join(f"{p}, detailed"[:30].split())
+        for name, width in ((f"{stem}_noise_0.png", 5 * size),
+                            (f"val_{val_image.stem}_{stem}_noise_0.png", 4 * size)):
+            with Image.open(out_dir / name) as grid:
+                require(grid.size[0] == width and grid.size[1] > size, (name, grid.size))
+    return {"wall_s": wall, "dispatch_s": dispatch, "s_per_pair": [d / EVAL_BATCH for d in dispatch],
+            "unet_steps": unet_steps, "cells": batches * EVAL_BATCH,
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+            "allocated_before_gb": before / 1e9,
+            "launches": launches, "expected_launches": expected, "k1_launches_at_shape": at_shape}
 
 
 def load_batch(paths, size):
@@ -832,18 +1027,23 @@ def load_batch(paths, size):
 
 
 def print_profile(tag: str, prof: dict) -> None:
-    print(f"[profile] one {tag} iteration: wall {prof['wall_ms']:.0f} ms, device busy "
+    print(f"[profile] one {tag}: wall {prof['wall_ms']:.0f} ms, device busy "
           f"{prof['device_ms']:.0f} ms, idle share <= {prof['idle_share']:.3f}; by group (ms) "
           + ", ".join(f"{g} {ms:.0f}" for g, ms in prof["groups_ms"].items()), flush=True)
     for name, ms in prof["top_kernels_ms"]:
         print(f"[profile]   {ms:9.1f} ms  {name[:110]}")
 
 
-def free_card() -> None:
+def free_card(held: Optional[dict] = None, after: str = "") -> None:
+    """Drop what nothing references; with ``held``, record there what stays
+    allocated ``after`` a path, which must be under HELD_LIMIT_GB."""
     import torch
 
     gc.collect()
     torch.cuda.empty_cache()
+    if held is not None:
+        held[after] = gb = torch.cuda.memory_allocated() / 1e9
+        require(gb <= HELD_LIMIT_GB, f"{gb:.2f} GB stay allocated after the {after} path")
 
 
 def main(argv) -> int:
@@ -859,7 +1059,9 @@ def main(argv) -> int:
         print("chip_smoke: CUDA is not available; this check runs on the card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from tml_image_editing_defense_torch import api
+    from PIL import Image
+
+    from tml_image_editing_defense_torch import api, cli
     from tml_image_editing_defense_torch.configs import TrainConfig
     from tml_image_editing_defense_torch.core.samplers import LCMSampler
     from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
@@ -888,7 +1090,8 @@ def main(argv) -> int:
     flash = {}
     for shape, dtypes in ((UNET_SHAPE, (torch.float32, torch.bfloat16)),
                           (VAE_SHAPE, (torch.float32, torch.bfloat16)),
-                          (ENC_ATTN_SHAPE, (torch.float32,))):
+                          (ENC_ATTN_SHAPE, (torch.float32,)),
+                          (EVAL_UNET_SHAPE, (torch.float32,)), (EVAL_VAE_SHAPE, (torch.float32,))):
         for dtype in dtypes:
             r = check_flash(fa, shape, dtype, gen, times=True)
             flash[f"{shape}-{r['dtype']}"] = r
@@ -915,9 +1118,10 @@ def main(argv) -> int:
     report["flash"], report["updates"] = flash, check_updates(pk, gen)
 
     kernels = fa.KERNELS + pk.KERNELS
+    held = report["held_after_gb"] = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for i in range(1, 3 + 2 * ENC_BATCH):
+        for i in range(1, 4 + 2 * ENC_BATCH):
             synthetic_image(tmp / f"image{i}.png", i)
         source, target = tmp / "image1.png", tmp / "image2.png"
 
@@ -953,9 +1157,28 @@ def main(argv) -> int:
         print(f"[model] one SD-1.5 512x512 PGD iteration, kernels vs plain attention and plain "
               f"update: {report['iteration_vs_plain']}", flush=True)
         report["profile"] = profile_iteration(result.model, cfg, inputs)
-        print_profile("PGD", report["profile"])
-        del result, inputs
+        print_profile("PGD iteration", report["profile"])
+        del inputs
         free_card()
+
+        # ---- resume, then the evaluate gate, on the diffusion path's model ---
+        res = report["resume"] = resume_path(
+            api, cfg, result.model, result.x_adv, kernels,
+            {"tid_flash_fwd": per_it, "tid_flash_bwd_kv": per_it, "tid_flash_bwd_q": per_it,
+             "tid_pgd_l2_update": 1}, tmp)
+        print(f"[resume] immunize resumed from the state after iteration 2: iteration 3 alone in "
+              f"{res['wall_s']:.2f} s (its metrics row at {res['iteration_row_t_s']:.2f} s after "
+              f"the loop's start); |x_adv - uninterrupted|_max = {res['x_adv_max_abs_diff']:.2e} "
+              f"<= 1e-3; launches {res['launches']}", flush=True)
+        gate = report["evaluate_gate"] = evaluate_gate(
+            result.model, Image.open(source).convert("RGB"),
+            Image.open(cfg.output_path / "adversarial_image.png").convert("RGB"))
+        print(f"[gate] one (clean, adv) pair, PLMS 10 steps at strength 0.6 ({gate['unet_steps']} "
+              f"UNet calls), K1 against plain attention on the same weights: max abs diff "
+              f"{gate['max_abs_diff']:.2e} (mean {gate['mean_abs_diff']:.2e}) <= 1e-3, finite",
+              flush=True)
+        del result
+        free_card(held, "diffusion")
 
         # ---- the inpaint path ---------------------------------------------
         # Per iteration: 5 reps x (1 encode + 3 UNet calls x 5 long
@@ -988,9 +1211,9 @@ def main(argv) -> int:
         print(f"[model] one SD-1.5-inpaint 512x512 L-inf iteration, kernels vs plain attention "
               f"and plain update: {report['inpaint_vs_plain']}", flush=True)
         report["inpaint_profile"] = profile_iteration(result.model, icfg, inputs)
-        print_profile("inpaint", report["inpaint_profile"])
+        print_profile("inpaint iteration", report["inpaint_profile"])
         del result, inputs, src, tgt
-        free_card()
+        free_card(held, "inpaint")
 
         # ---- the encoder attack -------------------------------------------
         images = (load_batch([tmp / f"image{i}.png" for i in range(3, 3 + ENC_BATCH)], 512),
@@ -1002,7 +1225,27 @@ def main(argv) -> int:
               f"GB; losses {[round(v, 4) for v in enc['losses']]}; |x_adv - src|_inf = "
               f"{enc['dist']:.4f} <= 0.1; launches {enc['launches']}", flush=True)
         del images
-        free_card()
+        free_card(held, "encoder")
+
+        # ---- evaluate, through the CLI --------------------------------------
+        ev = report["evaluate_path"] = evaluate_path(cli, kernels, tmp / "out", source, target,
+                                                     tmp / f"image{3 + 2 * ENC_BATCH}.png", tmp)
+        print(f"[evaluate] evaluate sd15 512x512 f32, PLMS {ev['unet_steps']} UNet calls an edit, "
+              f"{ev['cells']} cells in batches of {EVAL_BATCH} pairs: "
+              + ", ".join(f"{d:.2f}" for d in ev["dispatch_s"]) + " s a batch, "
+              + ", ".join(f"{d:.2f}" for d in ev["s_per_pair"]) + f" s a pair; {ev['wall_s']:.1f} s "
+              f"in all (model build included); peak {ev['max_memory_allocated_gb']:.2f} GB "
+              f"above the {ev['allocated_before_gb']:.2f} GB allocated before; launches {ev['launches']} "
+              f"(K1 {ev['k1_launches_at_shape']})", flush=True)
+        free_card(held, "evaluate")
+        report["eval_profile"] = profile_eval_batch(
+            Image.open(source).convert("RGB"),
+            Image.open(tmp / "out" / "adversarial_image.png").convert("RGB"))
+        print_profile(f"evaluation batch ({EVAL_BATCH} pairs)", report["eval_profile"])
+        free_card(held, "evaluation profile")
+        print("[memory] GB allocated on the card after each path: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in held.items())
+              + f" (limit {HELD_LIMIT_GB})", flush=True)
 
     report["kernels"] = rows = kernel_rows(flash, report["updates"], report)
     if report_path is not None:
@@ -1017,9 +1260,11 @@ def main(argv) -> int:
 
 
 def kernel_rows(flash, updates, report) -> list:
-    """One row per kernel and shape for the result's kernels line; each row's
-    ``launches`` is the count of the path named by ``path``, read just after
-    that path ran.  ``ms`` is the CUDA-event mean over back-to-back calls
+    """One row per kernel and shape for the result's kernels line.  Each
+    row's ``launches`` is the count of the path named by ``path``, read just
+    after that path ran, and ``launches_by_path`` the kernel's count on
+    every path (the evaluate rows also split K1's count by shape, as the
+    code implies it).  ``ms`` is the CUDA-event mean over back-to-back calls
     from the host (host time included); ``device_ms`` the median of the
     kernels' own spans with the operands in L2, and for K4 and K5
     ``device_cold_ms`` the same after a 128 MB write."""
@@ -1029,17 +1274,25 @@ def kernel_rows(flash, updates, report) -> list:
     tpu_pgd = "tml_image_editing_defense_tpu/ops/pgd_kernels.py"
     launches = {"diffusion": report["main_path"]["launches"],
                 "inpaint": report["inpaint_path"]["launches"],
-                "encoder": report["encoder_path"]["launches"]}
+                "encoder": report["encoder_path"]["launches"],
+                "resume": report["resume"]["launches"],
+                "evaluate": report["evaluate_path"]["launches"]}
+    by_path = lambda sym: {path: counts[sym] for path, counts in launches.items()}  # noqa: E731
+    at_shape = report["evaluate_path"]["k1_launches_at_shape"]
     rows = []
     for path, shape in (("diffusion", UNET_SHAPE), ("inpaint", UNET_SHAPE),
-                        ("encoder", ENC_ATTN_SHAPE)):
+                        ("encoder", ENC_ATTN_SHAPE), ("evaluate", EVAL_UNET_SHAPE),
+                        ("evaluate", EVAL_VAE_SHAPE)):
         r = flash[f"{shape}-float32"]
         for name, sym, key, line in (("flash_fwd", "tid_flash_fwd", "fwd", 69),
                                      ("flash_bwd_kv", "tid_flash_bwd_kv", "bwd_kv", 148),
                                      ("flash_bwd_q", "tid_flash_bwd_q", "bwd_q", 185)):
-            rows.append({
+            if path == "evaluate" and key != "fwd":
+                continue                    # evaluation runs the forward only
+            row = {
                 "name": name, "route": "cuda", "source": src_fa, "replaces": f"{tpu_fa}:{line}",
-                "launches": launches[path][sym], "max_abs_err": r["err"][key],
+                "launches": launches[path][sym], "launches_by_path": by_path(sym),
+                "max_abs_err": r["err"][key],
                 "ms": r["ms"][key], "device_ms": r["device_ms"][key],
                 "plain_ms": r["plain_ms"][key],
                 "bound_ms": r["bound"][key][0], "bound_by": r["bound"][key][1],
@@ -1047,7 +1300,10 @@ def kernel_rows(flash, updates, report) -> list:
                 "library_call": ("scaled_dot_product_attention forward" if key == "fwd" else
                                  "scaled_dot_product_attention backward: K2 and K3 together"),
                 "path": path, "shape": list(shape), "dtype": "float32", "ok": True,
-            })
+            }
+            if path == "evaluate":
+                row["launches_at_shape"] = at_shape["unet" if shape == EVAL_UNET_SHAPE else "vae"]
+            rows.append(row)
     update_rows = [("pgd_l2_update", "diffusion", "tid_pgd_l2_update", 118,
                     updates["l2"]["f32"])]
     update_rows += [("pgd_linf_update", path, "tid_pgd_linf_update", 64,
@@ -1056,7 +1312,8 @@ def kernel_rows(flash, updates, report) -> list:
     for name, path, sym, line, r in update_rows:
         rows.append({
             "name": name, "route": "cuda", "source": src_pgd, "replaces": f"{tpu_pgd}:{line}",
-            "launches": launches[path][sym], "max_abs_err": r["err"], "ms": r["host_call_ms"],
+            "launches": launches[path][sym], "launches_by_path": by_path(sym),
+            "max_abs_err": r["err"], "ms": r["host_call_ms"],
             "device_ms": r["device"]["ms"], "device_cold_ms": r["device_cold"]["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None, "path": path, "shape": r["shape"], "dtype": "float32",

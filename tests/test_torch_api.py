@@ -1,6 +1,7 @@
 """``immunize`` of the port end to end on the CPU, on the tiny family: the
 artifacts (PNG, a ``noise.npz`` the JAX package reads back, one finite
-``metrics.jsonl`` row per iteration), the eps-ball, and the refusals."""
+``metrics.jsonl`` row per iteration, ``attack_state.npz``), the eps-ball,
+and the refusals of what later slices bring."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from PIL import Image
 from tml_image_editing_defense_tpu.core.rng import load_noise_pool as j_load_noise_pool
 
 from tml_image_editing_defense_torch import api
-from tml_image_editing_defense_torch.configs import TrainConfig
+from tml_image_editing_defense_torch.configs import InferenceConfig, TrainConfig
 from tml_image_editing_defense_torch.core.image_ops import load_image
 from test_torch_models import one_torch_thread  # noqa: F401
 
@@ -88,6 +89,19 @@ def test_immunize_is_deterministic_from_the_seed(tmp_path):
     assert a.history == b.history
 
 
+def test_immunize_draws_the_same_with_a_passed_model(tmp_path):
+    """The set-up draws have a stream of their own: a run handed the model
+    that another run built ends on that run's iterate (resuming on a passed
+    model relies on it)."""
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    built = api.immunize(_cfg(tmp_path / "a", n_optimization_steps=1), device="cpu")
+    handed = api.immunize(_cfg(tmp_path / "b", n_optimization_steps=1), device="cpu",
+                          model=built.model)
+    assert torch.equal(built.x_adv, handed.x_adv)
+    assert torch.equal(built.noise_pool, handed.noise_pool)
+
+
 def test_fresh_noise_run_keeps_no_pool(tmp_path):
     """use_fixed_noise=False draws a fresh init noise per rep (pgd.py:229-232)
     and, as the reference, writes no noise.npz."""
@@ -105,8 +119,18 @@ def test_immunize_without_a_device_raises_where_cuda_is_absent(tmp_path):
         api.immunize(_cfg(tmp_path))
 
 
+def test_evaluate_without_a_device_raises_where_cuda_is_absent(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this checks the CPU-only machine's error")
+    src, _ = _images(tmp_path)
+    cfg = InferenceConfig(source_image_path=src, target_image_path=src, model_family="tiny",
+                          image_size=32, output_path=tmp_path / "eval")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.evaluate(cfg, Image.open(src))
+
+
 @pytest.mark.parametrize("kw", [
-    {"checkpoint_interval": 5},
+    {"params_path": "weights.msgpack"},
     {"use_segmentation_mask": True},
     {"add_image_caption_to_prompts": True},
     {"use_sdxl": True, "model_family": None},
@@ -116,6 +140,43 @@ def test_later_slices_raise_not_implemented(tmp_path, kw):
         api.immunize(_cfg(tmp_path, **kw), device="cpu")
 
 
+@pytest.mark.parametrize("kw", [
+    {"eval_shards": 2},
+    {"aesthetic_score": 6.0},
+    {"negative_aesthetic_score": 2.5},
+    {"use_sdxl": True},
+    {"add_image_caption_to_prompts": True},
+    {"tokenizer_paths": ["tok"]},
+])
+def test_evaluate_later_slices_raise_not_implemented(tmp_path, kw):
+    src, _ = _images(tmp_path)
+    cfg = InferenceConfig(source_image_path=src, target_image_path=src, model_family="tiny",
+                          image_size=32, output_path=tmp_path / "eval", **kw)
+    with pytest.raises(NotImplementedError, match="slice"):
+        api.evaluate(cfg, Image.open(src), device="cpu")
+
+
 def test_resume_raises_not_implemented(tmp_path):
-    with pytest.raises(NotImplementedError, match="resume"):
-        api.immunize(_cfg(tmp_path), device="cpu", resume_from=tmp_path / "state.npz")
+    """Resuming works (tests/test_torch_checkpoint.py), but not from a state
+    the JAX package wrote: its threefry key cannot drive the port's
+    per-iteration generators, so that state is refused."""
+    import jax
+    import jax.numpy as jnp
+
+    from tml_image_editing_defense_tpu.utils.checkpoint import save_attack_state
+
+    state = tmp_path / "state.npz"
+    save_attack_state(state, jnp.zeros((1, 32, 32, 3)), 1, jax.random.key(0))
+    with pytest.raises(ValueError, match="seed"):
+        api.immunize(_cfg(tmp_path), device="cpu", resume_from=state)
+
+
+def test_checkpoint_interval_writes_the_attack_state(tmp_path):
+    """``checkpoint_interval`` works: after iteration 2 of 3 the state says 3."""
+    from tml_image_editing_defense_torch.utils.checkpoint import load_attack_state
+
+    cfg = _cfg(tmp_path, checkpoint_interval=2, enable_visualization=False)
+    result = api.immunize(cfg, device="cpu")
+    x, it, seed, pool = load_attack_state(cfg.output_path / "attack_state.npz")
+    assert (it, seed) == (3, cfg.seed)
+    assert torch.equal(x, result.x_adv) and torch.equal(pool, result.noise_pool)

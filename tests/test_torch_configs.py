@@ -50,3 +50,12 @@ def test_prompt_data_matches_jax():
     assert pc.NEGATIVE_PROMPT == jc.NEGATIVE_PROMPT
     for p, cap in (("painting", ""), ("in a city", "a dog")):
         assert pc.format_prompt(p, cap) == jc.format_prompt(p, cap)
+
+
+def test_inference_config_and_prompts_match_jax():
+    """``InferenceConfig``: every field and default, and ``__post_init__``'s
+    paths; ``INFERENCE_PROMPTS`` equal."""
+    assert _defaults(pc.InferenceConfig) == _defaults(jc.InferenceConfig)
+    kw = dict(source_image_path="a.png", output_path="out", validation_images_path="v.txt")
+    assert pc.InferenceConfig(**kw).asdict() == jc.InferenceConfig(**kw).asdict()
+    assert pc.INFERENCE_PROMPTS == jc.INFERENCE_PROMPTS

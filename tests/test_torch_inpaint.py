@@ -25,6 +25,7 @@ from test_torch_models import nchw, nhwc, one_torch_thread, port_model_from_jax 
 from test_torch_pgd import GOLDEN_PATH, GS, SIZE, TOL, _port_cfg, _rand, assert_sign_steps_close
 from test_torch_pgd import golden_jax_model
 from tml_image_editing_defense_tpu.attack.forward import CondInputs as JCond
+from tml_image_editing_defense_tpu.api import training_sampler_kind as j_training_sampler_kind
 from tml_image_editing_defense_tpu.attack.inpaint import (
     inpaint_attack_forward as j_inpaint_attack_forward,
 )
@@ -38,6 +39,7 @@ from tml_image_editing_defense_tpu.attack.pgd import linf_perturbation_step as j
 from tml_image_editing_defense_tpu.attack.pgd import make_attack_data as j_make_attack_data
 from tml_image_editing_defense_tpu.configs import TrainConfig as JTrainConfig
 from tml_image_editing_defense_tpu.core.samplers import LCMSampler as JLCM
+from tml_image_editing_defense_tpu.core.samplers import make_sampler as j_make_sampler
 from tml_image_editing_defense_tpu.core.schedule import make_noise_schedule as j_schedule
 from tml_image_editing_defense_tpu.models.model_zoo import PromptBank as JBank
 
@@ -57,7 +59,7 @@ from tml_image_editing_defense_torch.attack.pgd import (
 )
 from tml_image_editing_defense_torch.configs import TrainConfig
 from tml_image_editing_defense_torch.core.image_ops import load_image
-from tml_image_editing_defense_torch.core.samplers import LCMSampler
+from tml_image_editing_defense_torch.core.samplers import LCMSampler, make_sampler
 from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
 from tml_image_editing_defense_torch.models.model_zoo import PromptBank, build_model
 from tml_image_editing_defense_torch.ops import pgd_kernels as pk
@@ -133,6 +135,36 @@ def test_inpaint_forward_matches_jax_and_golden(models):
     np.testing.assert_allclose(nhwc(got), np.asarray(want), **TOL)
     np.testing.assert_allclose(nhwc(got), np.load(GOLDEN_PATH)["inpaint_attack_forward_latent"],
                                **TOL)
+
+
+@pytest.mark.parametrize("family", ["sd15", "sd15-inpaint", "tiny", "tiny-inpaint", "sdxl"])
+@pytest.mark.parametrize("use_lcm", [True, False])
+def test_training_sampler_kind_matches_jax(family, use_lcm):
+    """Without LCM the inpaint families train with Euler, as in the JAX package."""
+    assert api.training_sampler_kind(family, use_lcm) == j_training_sampler_kind(family, use_lcm)
+
+
+def test_inpaint_forward_euler_matches_jax(models):
+    """The inpaint forward with the sampler of ``use_lcm=False`` (Euler: fresh
+    latents scaled by the plan's initial sigma, model inputs scaled, no step
+    noise), against the JAX forward on the same key."""
+    jmodel, pm = models
+    image = np.clip(_rand(1, (1, SIZE, SIZE, 3), 0.4), -1, 1)
+    ctx = _rand(14, (2, 7, 32))
+    key = jax.random.key(16)
+    jsampler = j_make_sampler(j_training_sampler_kind("tiny-inpaint", False), jmodel.schedule)
+    want = j_inpaint_attack_forward(jmodel, jsampler, jsampler.plan(4, limit_t=800, min_t=101),
+                                    jmodel.params, jnp.asarray(image), JCond(ctx=jnp.asarray(ctx)),
+                                    GS, key, remat_policy="none")
+    sampler = make_sampler(api.training_sampler_kind("tiny-inpaint", False), pm.schedule)
+    plan = sampler.plan(4, limit_t=800, min_t=101)
+    assert plan.kind == "euler" and plan.num_steps == 3
+    k_lat, k_vae, _ = jax.random.split(key, 3)
+    lat, eps = (nchw(np.asarray(jax.random.normal(k, LAT, jnp.float32))) for k in (k_lat, k_vae))
+    with torch.no_grad():
+        got = inpaint_attack_forward(pm, sampler, plan, nchw(image),
+                                     CondInputs(ctx=torch.tensor(ctx)), GS, lat, eps, None)
+    np.testing.assert_allclose(nhwc(got), np.asarray(want), **TOL)
 
 
 def _inputs(n_prompts=3):

@@ -22,6 +22,8 @@ def _modules():
 def test_importing_every_port_module_loads_no_jax():
     mods = _modules()
     assert len(mods) > 20, mods
+    assert {f"{port.__name__}.{m}" for m in ("cli", "pipelines.img2img", "utils.checkpoint",
+                                             "utils.preemption")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

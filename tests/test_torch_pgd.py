@@ -37,6 +37,7 @@ from tml_image_editing_defense_tpu.attack.pgd import make_pgd_step as j_make_pgd
 from tml_image_editing_defense_tpu.configs import TrainConfig as JTrainConfig
 from tml_image_editing_defense_tpu.core.rng import make_noise_pool as j_make_noise_pool
 from tml_image_editing_defense_tpu.core.samplers import LCMSampler as JLCM
+from tml_image_editing_defense_tpu.core.samplers import make_sampler as j_make_sampler
 from tml_image_editing_defense_tpu.models import build_model as jax_build_model
 from tml_image_editing_defense_tpu.models.model_zoo import PromptBank as JBank
 
@@ -50,7 +51,7 @@ from tml_image_editing_defense_torch.attack.pgd import (
     sample_draws,
 )
 from tml_image_editing_defense_torch.configs import TrainConfig
-from tml_image_editing_defense_torch.core.samplers import LCMSampler
+from tml_image_editing_defense_torch.core.samplers import LCMSampler, make_sampler
 from tml_image_editing_defense_torch.models.model_zoo import PromptBank, build_model
 from tml_image_editing_defense_torch.models.vae import sample_latent
 
@@ -133,10 +134,12 @@ def _port_cfg(jcfg) -> TrainConfig:
     return TrainConfig(**{k: v for k, v in jcfg.asdict().items() if k in names})
 
 
-def _step_both(jmodel, pm, jcfg, jbank, pbank, jpool, source, target, x0, key, k):
-    """One JAX jitted step and one port step on replayed draws; the port's
-    aux also carries its EOT gradient under "grad"."""
-    jsampler = JLCM(jmodel.schedule)
+def _step_both(jmodel, pm, jcfg, jbank, pbank, jpool, source, target, x0, key, k,
+               kind="lcm"):
+    """One JAX jitted step and one port step on replayed draws, both with
+    the ``kind`` sampler; the port's aux also carries its EOT gradient under
+    "grad"."""
+    jsampler = j_make_sampler(kind, jmodel.schedule)
     jplan = jsampler.plan(k, limit_t=700 if jcfg.limit_timesteps else None)
     jdata = j_make_attack_data(jmodel, jcfg, jnp.asarray(source), jnp.asarray(target), jbank,
                                jnp.asarray(jpool))
@@ -144,7 +147,7 @@ def _step_both(jmodel, pm, jcfg, jbank, pbank, jpool, source, target, x0, key, k
         jmodel.params, jnp.asarray(x0), jdata, key)
 
     cfg = _port_cfg(jcfg)
-    sampler = LCMSampler(pm.schedule)
+    sampler = make_sampler(kind, pm.schedule)
     plan = sampler.plan(k, limit_t=700 if cfg.limit_timesteps else None)
     pool = torch.from_numpy(np.ascontiguousarray(np.asarray(jpool).transpose(0, 1, 4, 2, 3)))
     data = make_attack_data(pm, cfg, nchw(source), nchw(target), pbank, pool)
@@ -165,7 +168,14 @@ def test_pgd_step_linf_matches_jitted_jax_step(models):
     _check_step_against_jax(models, "linf")
 
 
-def _check_step_against_jax(models, norm):
+def test_pgd_step_plms_matches_jitted_jax_step(models):
+    """The PLMS training sampler of ``use_lcm=False`` (JAX api.py:56-62):
+    K = 4 with t < 700 leaves [501, 501, 251, 1], the warm-up row included;
+    the chain carries PLMS's eps history through the differentiated steps."""
+    _check_step_against_jax(models, "l2", kind="plms")
+
+
+def _check_step_against_jax(models, norm, kind="lcm"):
     jmodel, pm = models
     radius = dict(eps=12.0, step_size=1.5) if norm == "l2" else dict(eps=0.1, step_size=0.006)
     jcfg = JTrainConfig(
@@ -182,7 +192,7 @@ def _check_step_against_jax(models, norm):
     target = np.clip(_rand(24, (1, SIZE, SIZE, 3), 0.4), -1, 1)
     x0 = np.clip(source + _rand(25, source.shape, 0.01), -1, 1)
     (jx1, jaux), (x1, aux) = _step_both(jmodel, pm, jcfg, jbank, pbank, pool, source, target,
-                                        x0, jax.random.key(77), 4)
+                                        x0, jax.random.key(77), 4, kind)
     for name in ("avg_loss", "rec_loss", "pert_loss"):
         np.testing.assert_allclose(aux[name].item(), float(jaux[name]), rtol=2e-4, err_msg=name)
     np.testing.assert_allclose(nhwc(aux["output_image"]), np.asarray(jaux["output_image"]), **TOL)

@@ -5,13 +5,13 @@ PGD immunization of an image against Stable Diffusion img2img editing
 a K-step CFG UNet chain and VAE decode.  The JAX package beside this one is
 the reference the port is held against; this package imports none of it.
 
-The long self-attentions and the L2 PGD update run as hand-written CUDA
+The long self-attentions and the PGD updates run as hand-written CUDA
 kernels (``csrc/``, built with nvcc for sm_90a at first use); everything else
 is plain PyTorch.  Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
 
-from tml_image_editing_defense_torch.api import ImmunizeResult, immunize
-from tml_image_editing_defense_torch.configs import TrainConfig
+from tml_image_editing_defense_torch.api import ImmunizeResult, evaluate, immunize
+from tml_image_editing_defense_torch.configs import InferenceConfig, TrainConfig
 
-__all__ = ["ImmunizeResult", "TrainConfig", "immunize"]
+__all__ = ["ImmunizeResult", "InferenceConfig", "TrainConfig", "evaluate", "immunize"]

@@ -33,17 +33,21 @@ def denoise_chain(
     model: DiffusionModel,
     sampler: BaseSampler,
     plan: DenoisePlan,
-    latents: torch.Tensor,             # [1, C, h, w], already noised to t0
+    latents: torch.Tensor,             # [B, C, h, w], already noised to t0
     cond: CondInputs,
     guidance_scale: float,
-    step_noise: Optional[Sequence[torch.Tensor]],   # [K, C, h, w] (row i: step i's draw)
+    step_noise: Optional[Sequence[torch.Tensor]],   # row i: step i's draw
     extra_channels: Optional[torch.Tensor] = None,  # [2B, C', h, w], appended to the input
 ) -> torch.Tensor:
-    """K CFG denoising steps (reference loop main.py:229-243).
+    """K CFG denoising steps (reference loop main.py:229-243), the sampler's
+    carry threaded through.  Row i of ``step_noise`` ([K, B, C, h, w], or
+    [K, C, h, w] for one draw shared by the batch) is broadcast to the
+    latent's shape; it may be None for a sampler that draws nothing.
     ``extra_channels`` are concatenated after the scaled latent on every
     step: the inpaint UNet's mask and masked-image latent."""
     x = latents
     b = x.shape[0]
+    carry = sampler.init_carry(x.shape, x.dtype, x.device)
     for i in range(plan.num_steps):
         latent_in = sampler.scale_model_input(plan, i, torch.cat([x, x], dim=0))
         if extra_channels is not None:
@@ -51,8 +55,8 @@ def denoise_chain(
         eps = model.apply_unet(latent_in, int(plan.t_eval[i]), cond.ctx)
         eps_uncond, eps_text = eps[:b], eps[b:]
         guided = eps_uncond + guidance_scale * (eps_text - eps_uncond)
-        noise = None if plan.is_last[i] else step_noise[i][None]
-        x = sampler.step(plan, i, guided, x, noise)
+        noise = step_noise[i].expand_as(x) if sampler.uses_step_noise else None
+        x, carry = sampler.step(plan, i, carry, guided, x, noise)
     return x
 
 

@@ -48,7 +48,10 @@ def inpaint_attack_forward(
     step_noise: Optional[Sequence[torch.Tensor]],   # [K, C, h, w]
 ) -> torch.Tensor:
     """image -> unscaled output latent through the inpaint denoising chain
-    (JAX inpaint.py:33-89), under an all-ones mask."""
+    (JAX inpaint.py:33-89), under an all-ones mask.  An Euler plan scales
+    the fresh latents by its initial sigma, as the JAX forward does."""
+    if plan.kind == "euler":
+        latents = latents * plan.init_sigma
     masked_image_latents = model.encode_image(image, vae_eps)
     mask_latent = torch.ones((1, 1, *latents.shape[-2:]), dtype=image.dtype, device=image.device)
     # the CFG halves of the conditioning channels, built once (:94-97)

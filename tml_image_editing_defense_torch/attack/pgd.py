@@ -358,28 +358,49 @@ def run_pgd(
     vis_needs_image: bool = True,
     step_fn: Optional[Callable] = None,
     draw_sampler: Optional[Callable[[torch.Generator], EOTDraws]] = None,
+    x_init: Optional[torch.Tensor] = None,
+    start_iteration: int = 0,
+    stop_flag=None,
+    ckpt_callback: Optional[Callable] = None,
+    ckpt_interval: int = 0,
 ) -> Tuple[torch.Tensor, list]:
-    """Host-driven PGD loop from the source image (reference main.py:79-135).
+    """Host-driven PGD loop (reference main.py:79-135), from ``x_init``
+    (default: the source) at iteration ``start_iteration``.
 
     ``step_fn(x_adv, data, draws) -> (x_adv', aux)`` is the iteration
     (default: :func:`make_pgd_step` without the vis decode);
     ``draw_sampler(generator) -> EOTDraws`` draws its randomness from the
-    iteration's generator (default: :func:`sample_draws`).
+    iteration's generator (default: :func:`sample_draws`).  The generators
+    are positional in (seed, iteration), so a run resumed at iteration k
+    draws what an uninterrupted run would.
     ``vis_callback(it, x_adv, aux)`` fires at every
     ``cfg.image_visualization_interval``-th iteration and at the last one;
     the vis image is decoded from ``aux["output_latent"]`` only there, when
-    ``vis_needs_image``.  Loss scalars stay on the device until the loop
-    ends; the returned history has one ``{avg_loss, rec_loss, pert_loss}``
-    entry per iteration."""
+    ``vis_needs_image``.  ``ckpt_callback(it, x_adv)`` fires on its own
+    schedule, after every iteration ``it`` with ``it % ckpt_interval == 0``
+    but iteration 0, whether or not it is a vis iteration (JAX
+    ``run_pgd``, pgd.py:472-478).  ``stop_flag`` (utils/preemption.py) is
+    polled before each iteration; once it is set the loop returns the
+    current iterate and the history ends with ``{"preempted_at": it}``, the
+    iteration that did not run.
+
+    Loss scalars stay on the device until the loop ends; the returned history
+    has one ``{avg_loss, rec_loss, pert_loss}`` entry per iteration run.
+    The JAX package's ``dispatch_block`` fuses iterations into one compiled
+    TPU dispatch; a host-driven eager loop has no such dispatch, so the port
+    has no counterpart of it."""
     step = step_fn or make_pgd_step(model, sampler, plan, cfg, decode_vis=False)
     if draw_sampler is None:
         def draw_sampler(gen):
             return sample_draws(gen, cfg, data.bank_embeds.shape[0], data.noise_pool.shape[0],
                                 data.noise_pool.shape[1:], plan.num_steps, data.source.dtype)
-    x_adv = data.source
+    x_adv = data.source if x_init is None else x_init
     n, interval = cfg.n_optimization_steps, cfg.image_visualization_interval
-    pending = []
-    for it in range(n):
+    pending, preempted = [], None
+    for it in range(start_iteration, n):
+        if stop_flag:
+            preempted = {"preempted_at": it}
+            break
         draws = draw_sampler(iteration_generator(seed, it, data.source.device))
         x_adv, aux = step(x_adv, data, draws)
         pending.append(torch.stack([aux[k].float() for k in SCALAR_KEYS]))
@@ -388,8 +409,12 @@ def run_pgd(
                 with torch.no_grad():
                     aux["output_image"] = model.decode_latent(aux["output_latent"], scaled=False)
             vis_callback(it, x_adv, aux)
+        if ckpt_callback is not None and ckpt_interval and it and it % ckpt_interval == 0:
+            ckpt_callback(it, x_adv)
     history = []
     if pending:
         rows = torch.stack(pending).cpu().tolist()
         history = [dict(zip(SCALAR_KEYS, row)) for row in rows]
+    if preempted is not None:
+        history.append(preempted)
     return x_adv, history

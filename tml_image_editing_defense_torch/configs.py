@@ -1,10 +1,10 @@
-"""Configuration: the immunization config and the prompt banks.
+"""Configuration: the immunization and evaluation configs and the prompt banks.
 
-Port of ``tml_image_editing_defense_tpu/configs.py`` (``TrainConfig`` and the
-prompt data).  Every field, default and the norm-conditional
-``__post_init__`` override (reference configs.py:152-159) are the same,
-except the knobs that shaped the TPU program and have no meaning here, which
-are dropped:
+Port of ``tml_image_editing_defense_tpu/configs.py`` (``TrainConfig``,
+``InferenceConfig`` and the prompt data).  Every field, default and the
+norm-conditional ``__post_init__`` override (reference configs.py:152-159)
+are the same, except the knobs that shaped the TPU program and have no
+meaning here, which are dropped:
 
 - ``eot_mode`` ("scan" / "vmap" / "shard") and ``eot_chunk``: the reps run
   one after another, which is the JAX "scan" with chunk 1;
@@ -86,6 +86,28 @@ _SCENE_PROMPTS = (
 
 #: Training-time EOT prompt bank (50 entries, reference ``configs.py:7-60``).
 PROMPTS_LIST: List[str] = list(_TEXTURE_PROMPTS + _STYLE_PROMPTS + _SCENE_PROMPTS)
+
+#: Held-out evaluation prompts (reference ``configs.py:61-82``).
+INFERENCE_PROMPTS: List[str] = [
+    "frozen",
+    "muddy",
+    "gold",
+    "lego",
+    "made of candy",
+    "watercolor painting",
+    "cartoon",
+    "pixel art",
+    "grafiti",
+    "abstract art",
+    "cubism",
+    "in space",
+    "underwater",
+    "in a snowstorm",
+    "on a beach",
+    "expressionist style",
+    "disney style",
+    "in a sci-fi world",
+]
 
 #: Negative prompt bank (reference ``configs.py:83``; commented out at every
 #: call site in the reference, kept for parity).
@@ -174,7 +196,8 @@ class TrainConfig:
     use_pallas_update: bool = True
     #: Decode and render the visualization grid at vis intervals.
     enable_visualization: bool = True
-    #: PGD-state checkpointing every N steps (0 = off; a later slice).
+    #: Save the PGD state to ``output_path/attack_state.npz`` every N
+    #: iterations (0 = off).
     checkpoint_interval: int = 0
     #: Converted real-weight checkpoint (None = random weights).
     params_path: Optional[Path] = None
@@ -199,6 +222,66 @@ class TrainConfig:
     @property
     def latent_size(self) -> int:
         return self.image_size // 8
+
+    def asdict(self) -> dict:
+        d = dataclasses.asdict(self)
+        for k, v in d.items():
+            if isinstance(v, Path):
+                d[k] = str(v)
+        return d
+
+
+@dataclass
+class InferenceConfig:
+    """Evaluation configuration (reference ``configs.py:162-193``).
+
+    ``eval_shards`` takes None or 1 (one card).  ``api.evaluate`` refuses
+    the knobs of later slices: ``use_sdxl``, ``aesthetic_score`` and
+    ``negative_aesthetic_score`` (SDXL), ``add_image_caption_to_prompts``
+    (aux models), ``params_path`` and ``tokenizer_paths`` (real weights)."""
+
+    source_image_path: Path = Path("data/images/japan.jpg")
+    target_image_path: Path = Path("data/images/japan.jpg")
+    default_source_image_caption: str = ""
+    output_path: Path = Path("./output")
+    experiment_name: str = "experiment_inference"
+    n_steps: int = 100                    # denoising steps for the edit
+    strength: float = 0.6                 # SDEdit strength
+    guidance_scale: float = 7.5
+    seed: int = 42
+    add_image_caption_to_prompts: bool = False
+    use_fixed_noise: bool = True
+    n_noise: int = 1
+    #: CFG negative prompt for every evaluation edit ("" is the reference's)
+    negative_prompt: str = ""
+    caption_model_path: Optional[str] = None
+    validation_images_path: Optional[Path] = Path("validation_images.txt")
+
+    # --- model selection ---
+    use_sdxl: bool = False
+    use_lcm: bool = False
+    image_size: int = 512
+    model_family: Optional[str] = None
+
+    # --- SDXL refiner-style knobs (sdxl_img2img_pipeline.py:306-320, 344-378) ---
+    denoising_end: Optional[float] = None
+    aesthetic_score: Optional[float] = None
+    negative_aesthetic_score: Optional[float] = None
+
+    # --- knobs without a reference equivalent ---
+    dtype: str = "float32"
+    save_images: bool = True
+    #: Cards the (prompt x noise) cells are spread over: None or 1 (one card).
+    eval_shards: Optional[int] = None
+    params_path: Optional[Path] = None
+    tokenizer_paths: Optional[List[Optional[str]]] = None
+
+    def __post_init__(self):
+        self.source_image_path = Path(self.source_image_path)
+        self.target_image_path = Path(self.target_image_path)
+        self.output_path = Path(self.output_path)
+        if self.validation_images_path is not None:
+            self.validation_images_path = Path(self.validation_images_path)
 
     def asdict(self) -> dict:
         d = dataclasses.asdict(self)

@@ -33,10 +33,14 @@ def center_crop_pil(img: Image.Image, size: int) -> Image.Image:
     return img.crop((left, top, left + size, top + size))
 
 
+def resize_crop_pil(img: Image.Image, size: int = 512) -> Image.Image:
+    """PIL in, PIL out: the reference's eval transform (main.py:447-450)."""
+    return center_crop_pil(resize_shorter_side(img, size), size)
+
+
 def preprocess_pil(img: Image.Image, size: int = 512, normalize: bool = True) -> np.ndarray:
-    img = center_crop_pil(resize_shorter_side(img, size), size)
-    arr = np.asarray(img, np.float32) / 255.0            # HWC, [0,1]
-    arr = np.ascontiguousarray(arr.transpose(2, 0, 1)[None])      # NCHW
+    arr = np.asarray(resize_crop_pil(img, size), np.float32) / 255.0     # HWC, [0,1]
+    arr = np.ascontiguousarray(arr.transpose(2, 0, 1)[None])             # NCHW
     if normalize:
         arr = arr * 2.0 - 1.0
     return arr

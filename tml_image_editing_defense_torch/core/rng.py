@@ -1,4 +1,4 @@
-"""Noise pool (port of ``core/rng.py``).
+"""Noise pool and named random streams (port of ``core/rng.py``).
 
 Draws come from explicit ``torch.Generator``s.  The pool lives NCHW
 ([N, 1, 4, h, w]) in the port; the ``noise.npz`` artifact keeps the JAX
@@ -13,6 +13,22 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+
+#: named streams of a run (:func:`stream_generator`)
+SETUP_STREAM, EVAL_STREAM = 1, 2
+
+
+def stream_generator(seed: int, stream: int, device) -> torch.Generator:
+    """The generator of one named stream of a run seeded with ``seed``:
+    ``SETUP_STREAM`` for ``immunize``'s set-up draws (noise pool, target
+    posterior noise), ``EVAL_STREAM`` for ``evaluate``'s.  numpy's
+    SeedSequence spawn key ``(stream,)`` keeps each apart from the others,
+    from the per-iteration generators (``attack/pgd.py``) and from the
+    weights' (``manual_seed(seed)``), so a run draws the same numbers
+    whether it builds its model or is handed one."""
+    state = np.random.SeedSequence(int(seed), spawn_key=(stream,)).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
 def make_noise_pool(generator: torch.Generator, n_noise: int, latent_shape: Sequence[int],

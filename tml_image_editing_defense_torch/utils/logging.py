@@ -10,11 +10,33 @@ from __future__ import annotations
 
 import json
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+
+def _init_wandb(wandb, **kwargs) -> Optional[str]:
+    """``wandb.init(**kwargs)`` on a thread of its own; the repr of what it
+    raised, or None.  wandb keeps the exception of a failed init, and the
+    exception's frames reach, through their callers, every caller's locals:
+    called on this thread, a failed init kept ``immunize``'s model alive
+    after the call (4.3 GB on the card at SD-1.5).  A thread's stack ends
+    at the thread, and the exception never reaches this one."""
+    outcome = {}
+
+    def run():
+        try:
+            wandb.init(**kwargs)
+        except Exception as e:
+            outcome["error"] = repr(e)
+
+    thread = threading.Thread(target=run, name="wandb-init")
+    thread.start()
+    thread.join()
+    return outcome.get("error")
 
 
 class MetricsLogger:
@@ -56,11 +78,11 @@ class MetricsLogger:
             except ImportError:
                 wandb = None
             if wandb is not None:
-                try:
-                    wandb.init(project=project, config=config or {}, name=name)
+                error = _init_wandb(wandb, project=project, config=config or {}, name=name)
+                if error is None:
                     self._wandb = wandb
-                except Exception as e:    # offline or misconfigured: keep the local sinks
-                    print(f"wandb sink disabled: {e!r}", flush=True)
+                else:                     # offline or misconfigured: keep the local sinks
+                    print(f"wandb sink disabled: {error}", flush=True)
 
     def log(self, metrics: dict, step: Optional[int] = None, images: Optional[dict] = None):
         step = self._step if step is None else step
@@ -81,24 +103,28 @@ class MetricsLogger:
                 payload.update({k: self._wandb.Image(v) for k, v in images.items()})
             self._wandb.log(payload, step=step)
 
-    def log_history(self, history, skip=()):
-        """Backfill one scalar record per iteration from a PGD loss history.
+    def log_history(self, history, start_step: int = 0, skip=()):
+        """Backfill one scalar record per iteration from a PGD loss history
+        whose first entry is iteration ``start_step`` (a resumed run's).
 
         The reference logs avg/rec/pert every iteration (``main.py:105-107``);
         the loop only syncs scalars to the host at visualization intervals,
         so the full per-iteration history (fetched once after the loop) is
         flushed here.  Steps in ``skip`` were already written live by the vis
-        callback; rows carry explicit step numbers, so order in the file is
-        not significant.  Backfilled rows carry ``backfilled: true`` and NO
-        ``t`` field: their per-iteration wall-clock was never observed on the
-        host, and a shared flush-time stamp would corrupt t-delta throughput
-        analysis.  For the wandb sink, backfilled rows are logged without the
-        monotonic ``step=`` kwarg (wandb drops out-of-order steps); the
-        explicit ``step`` field in the payload carries the iteration.
+        callback, and the preemption marker that closes a stopped run's
+        history is no iteration; rows carry explicit step numbers, so order
+        in the file is not significant.  Backfilled rows carry ``backfilled:
+        true`` and NO ``t`` field: their per-iteration wall-clock was never
+        observed on the host, and a shared flush-time stamp would corrupt
+        t-delta throughput analysis.  For the wandb sink, backfilled rows are
+        logged without the monotonic ``step=`` kwarg (wandb drops
+        out-of-order steps); the explicit ``step`` field in the payload
+        carries the iteration.
         """
         skip = set(skip)
-        for step, entry in enumerate(history):
-            if step in skip:
+        for i, entry in enumerate(history):
+            step = start_step + i
+            if step in skip or "avg_loss" not in entry:
                 continue
             scalars = {k: float(v) for k, v in entry.items()}
             if self._jsonl is not None:
