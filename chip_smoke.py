@@ -15,8 +15,9 @@ Phases, each fatal on failure:
    main paths' shapes -- flash attention K1 (forward), K2 (dK, dV), K3 (dQ)
    at [2, 4096, 8, 40] (UNet 64x64 level) and [1, 4096, 1, 512] (VAE
    mid-block) in f32 and bf16, at [8, 4096, 1, 512] (the encoder
-   attack's batched VAE mid-block) in f32, and at the evaluation's
-   [8, 4096, 8, 40] and [4, 4096, 1, 512] in f32; K1-K3 at ragged T (70..1000)
+   attack's batched VAE mid-block) in f32, at the evaluation's
+   [8, 4096, 8, 40] and [4, 4096, 1, 512] and at the SDXL evaluation's
+   [4, 4096, 10, 64] and [2, 16384, 1, 512] in f32; K1-K3 at ragged T (70..1000)
    at every compiled head dim (40, 64, 80, 512: every tile plan of K2/K3)
    in f32 and bf16, and K1-K3's refusal of a misaligned tensor; the L2 PGD
    update K4 at [1, 3, 512, 512] with and without a 0/1 mask, at
@@ -27,7 +28,8 @@ Phases, each fatal on failure:
    and [8, 3, 512, 512] in f32 (bit-equal) and bf16 (within 4e-3), at a
    ragged size and on a misaligned view -- with each one's time, the plain
    version's, a single PyTorch call's where one computes the same function
-   (SDPA's forward for K1, SDPA's backward for K2 and K3 together), and the
+   (SDPA's forward for K1, with the backend it took, SDPA's backward for K2
+   and K3 together), and the
    least time the card could take (the bound; f32 attention at the 3xTF32
    rate, 495/3 TFLOP/s).  Times are CUDA-event means over back-to-back
    calls from the host and, apart from host time, medians of the kernels'
@@ -60,9 +62,9 @@ Phases, each fatal on failure:
    deterministic, so not bit for bit), its launches those of one
    iteration, and its seconds;
 8. the evaluate gate: one (clean, adv) pair through ``Img2ImgPipeline``
-   with K1, and on the same weights with plain attention (a model built with
-   ``attn_kv_chunk=None``), a 10-step PLMS plan at strength 0.6, the same
-   draws: the images in [0, 1] finite and within 1e-3;
+   with K1, and on the same model with plain attention (the flash path's
+   length floor raised out of reach), a 10-step PLMS plan at strength 0.6,
+   the same draws: the images in [0, 1] finite and within 1e-3;
 9. evaluate: ``cli.main(["evaluate", ...])`` on the diffusion path's
    ``adversarial_image.png`` and ``noise.npz`` at the ``InferenceConfig``
    defaults (SD-1.5 at 512x512, f32, PLMS with 100 steps at strength 0.6:
@@ -72,10 +74,28 @@ Phases, each fatal on failure:
    plain version and timed at both shapes in phase 3; the grids written,
    seconds per batch and per pair, peak memory and K1's launches; then one
    batch of 2 pairs under ``torch.profiler``;
+10. the SDXL path: ``api.immunize`` with ``use_sdxl=True`` at the
+   ``TrainConfig`` defaults otherwise (SDXL at 512x512, f32, L2, 10 reps,
+   LCM K=4 -> 2 steps) for 3 iterations, with the diffusion path's checks;
+   at 512x512 every UNet attention is short (T <= 1024) and plain, so K1-K3
+   run the VAE's mid-block only.  Then one iteration through the kernels
+   and through plain attention with the plain update, one under
+   ``torch.profiler``, and the SDXL evaluate gate on the same weights at
+   1024x1024: one (clean, adv) pair, Euler 10 steps at strength 0.6, K1
+   against plain attention within 1e-3;
+11. SDXL evaluate: ``cli.main(["evaluate", "--use-sdxl", "true",
+   "--image-size", "1024", ...])`` at the ``InferenceConfig`` defaults
+   (Euler, SDXL without LCM: 100 steps at strength 0.6, guidance 7.5, f32),
+   one prompt, n_noise 1, no validation images: one cell, its edits one
+   after another (batch_edits is off at 1024x1024), on a synthetic
+   1024x1024 source and an adversarial PNG made from it with a seeded
+   perturbation inside the L2 ball; K1 at [4, 4096, 10, 64] (UNet) and
+   [2, 16384, 1, 512] (VAE), held and timed at both shapes in phase 3;
    after each path, once its objects are dropped, at most HELD_LIMIT_GB may
-   stay allocated on the card (a model left alive is 4.3 GB), and each
-   path's peak is counted above what was allocated when it began;
-10. a JSON line naming every kernel with its launches on every path, error
+   stay allocated on the card (a model left alive is 4.3 GB for SD-1.5 and
+   13.9 GB for SDXL), and each path's peak is counted above what was
+   allocated when it began;
+12. a JSON line naming every kernel with its launches on every path, error
    and times, then the card's name and power limit, then the result line.
 
 ``--report PATH`` also writes the full report there as JSON.
@@ -112,9 +132,12 @@ ENC_STEPS = 5           # of the encoder attack
 EVAL_BATCH = 2
 EVAL_UNET_SHAPE, EVAL_VAE_SHAPE = (4 * EVAL_BATCH, 4096, 8, 40), (2 * EVAL_BATCH, 4096, 1, 512)
 EVAL_PROMPTS = 2        # the first two of INFERENCE_PROMPTS
-#: long self-attentions per SD-1.5 UNet call: the 64x64 level's transformers,
-#: 2 in its down block and 3 in its up block
-UNET_LONG_ATTN = 5
+#: SDXL is trained at 512x512 (the reference's dataset transform) and
+#: evaluated at its native 1024x1024, one cell at a time; there K1 runs the
+#: UNet's 64x64 level (2 images x CFG, 10 heads of 64) and the VAE
+#: mid-block (128x128 tokens, the 2 images)
+SDXL_EVAL_SIZE = 1024
+SDXL_EVAL_UNET_SHAPE, SDXL_EVAL_VAE_SHAPE = (4, 4096, 10, 64), (2, 16384, 1, 512)
 LINF = dict(step_size=0.006, eps=0.1, min_value=-1.0, max_value=1.0)
 L2 = dict(step_size=7.5, eps=32.0, min_value=-1.0, max_value=1.0)     # the TrainConfig defaults
 #: a write this large between two timed calls leaves none of their operands
@@ -128,6 +151,9 @@ K4_KERNELS = ("pgd_l2_resident_kernel", "pgd_l2_partials_kernel", "pgd_l2_write_
 K5_KERNELS = ("pgd_linf_kernel",)
 #: what may stay allocated on the card once a path's objects are dropped
 HELD_LIMIT_GB = 1.0
+#: seconds since the script started at the end of each phase
+STARTED = time.perf_counter()
+PHASE_END_S: dict = {}
 
 
 def card_line() -> str:
@@ -150,6 +176,17 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profile_events(prof) -> list:
+    """(on the device, start us, end us, name) of every event of a finished
+    torch.profiler run, from its raw records: building its Python events
+    (``prof.events()``) took minutes for the CPU operators of an SDXL
+    iteration."""
+    events = prof.profiler.kineto_results.events()
+    base = min((e.start_ns() for e in events), default=0)     # whole ns, before the float
+    return [(str(e.device_type()).endswith("CUDA"), (e.start_ns() - base) / 1e3,
+             (e.end_ns() - base) / 1e3, e.name()) for e in events]
 
 
 def device_ms(fn, kernels, reps: int = 50, cold: bool = False) -> dict:
@@ -180,8 +217,8 @@ def device_ms(fn, kernels, reps: int = 50, cold: bool = False) -> dict:
             fn()
         torch.cuda.synchronize()
     # device events by (start, end, name): the profiler may list one more than once
-    spans = sorted({(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                    if str(e.device_type).endswith("CUDA") and any(k in e.name for k in kernels)})
+    spans = sorted({(start, end, name) for dev, start, end, name in profile_events(prof)
+                    if dev and any(k in name for k in kernels)})
     k = len(spans) // reps
     require(k > 0 and len(spans) == reps * k, f"{kernels}: {len(spans)} spans for {reps} calls")
     calls = [spans[i:i + k] for i in range(0, len(spans), k)]
@@ -323,6 +360,7 @@ def check_flash(fa, shape, dtype, gen, times: bool) -> dict:
         }
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     out["library_ms"] = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)}
+    out["library_backend"] = sdpa_backend(qt, kt, vt)
     with torch.enable_grad():
         # SDPA's backward alone (dQ, dK, dV together: K2 + K3's work)
         leaves = tuple(x.detach().requires_grad_(True) for x in (qt, kt, vt))
@@ -343,6 +381,26 @@ def check_flash(fa, shape, dtype, gen, times: bool) -> dict:
         out["library_ms"]["fwd_bwd"] = cuda_ms(sdpa_fwd_bwd, reps)
     out["ms"]["fwd_bwd"] = cuda_ms(flash_fwd_bwd, reps)
     return out
+
+
+def sdpa_backend(q, k, v) -> dict:
+    """Which backend SDPA's forward took on these inputs, from the name of
+    the aten operator it dispatched to (flash takes no f32 and no head dim
+    above 256), with the names of the kernels it ran."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+    events = profile_events(prof)
+    ops = {name for _, _, _, name in events if name.startswith("aten::_scaled_dot_product")}
+    backend = next((b for op, b in (("flash", "flash"), ("efficient", "efficient"),
+                                    ("cudnn", "cudnn"), ("math", "math"))
+                    if any(op in name for name in ops)), "unknown")
+    kernels = sorted({name[:100] for dev, _, _, name in events if dev})
+    return {"backend": backend, "ops": sorted(ops), "kernels": kernels[:6]}
 
 
 def check_flash_refuses_misaligned(fa) -> None:
@@ -712,8 +770,7 @@ def profile_call(fn) -> dict:
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     # device events by (name, start): the profiler may list one more than once
-    spans = {(e.name, e.time_range.start): e.time_range.end for e in prof.events()
-             if str(e.device_type).endswith("CUDA")}
+    spans = {(name, start): end for dev, start, end, name in profile_events(prof) if dev}
     kernels, busy_us, reach = {}, 0.0, float("-inf")
     for (name, start), end in sorted(spans.items(), key=lambda kv: kv[0][1]):
         kernels[name] = kernels.get(name, 0.0) + (end - start) / 1e3
@@ -773,13 +830,14 @@ def profile_eval_batch(clean, adv) -> dict:
         guidance_scale=cfg.guidance_scale, strength=cfg.strength))
 
 
-def synthetic_image(path: Path, seed: int) -> None:
-    """A smooth random RGB image (no file from outside the repository)."""
+def synthetic_image(path: Path, seed: int, size=(640, 600)) -> None:
+    """A smooth random RGB image of ``size`` (width, height), no file from
+    outside the repository."""
     import numpy as np
     from PIL import Image
 
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:600, 0:640] / 64.0
+    yy, xx = np.mgrid[0:size[1], 0:size[0]] / 64.0
     arr = np.stack([np.sin(xx * rng.uniform(0.5, 2)) * np.cos(yy * rng.uniform(0.5, 2))
                     for _ in range(3)], -1)
     arr = arr + 0.3 * rng.standard_normal(arr.shape)
@@ -927,34 +985,36 @@ def resume_path(api, cfg, model, full_x, kernels, per_iteration: dict, tmp: Path
             "history": res.history, "launches": launches, "expected_launches": expected}
 
 
-def evaluate_gate(model, clean, adv) -> dict:
-    """One (clean, adv) pair through ``Img2ImgPipeline`` on ``model`` (K1 in
-    the long self-attentions) and on a copy of its weights built with
-    ``attn_kv_chunk=None`` (plain attention everywhere): PLMS, 10 steps at
-    strength 0.6 (7 UNet calls: PLMS repeats one timestep), guidance 7.5,
-    the same noise and posterior draws.  The images in [0, 1] must be
-    finite and agree within 1e-3."""
+def evaluate_gate(model, clean, adv, layers, sampler: str = "plms") -> dict:
+    """One (clean, adv) pair through ``Img2ImgPipeline`` on ``model`` twice,
+    with the same noise and posterior draws: with K1 in the long
+    self-attentions, and with every attention on the plain path (the
+    length floor of ``layers.scaled_attention`` raised out of reach), on the
+    same weights; ``sampler`` (PLMS for SD-1.5, Euler for SDXL), 10 steps at
+    strength 0.6, guidance 7.5.  The images in [0, 1] must be finite and
+    agree within 1e-3."""
     import torch
 
-    from tml_image_editing_defense_torch.models.model_zoo import build_model
     from tml_image_editing_defense_torch.pipelines import Img2ImgPipeline
 
     dev = model.device
-    plain = build_model(model.family, image_size=model.image_size, device=dev,
-                        attn_kv_chunk=None)
-    for mine, theirs in zip((plain.unet, plain.vae, plain.text_models[0]),
-                            (model.unet, model.vae, model.text_models[0])):
-        mine.load_state_dict(theirs.state_dict())
     gen = torch.Generator(device=dev).manual_seed(1)
     noise, eps = (torch.randn((2, *model.latent_shape[1:]), generator=gen, device=dev)
                   for _ in range(2))
+    pipe = Img2ImgPipeline(model, sampler=sampler)
     outs = []
-    for m in (model, plain):
-        pipe = Img2ImgPipeline(m, sampler="plms")
-        outs.append(pipe("frozen, detailed", [clean, adv], num_inference_steps=10, strength=0.6,
-                         guidance_scale=7.5, noise=noise, vae_eps=eps, output_type="pt"))
+    floor = layers.MIN_CHUNKED_SEQ
+    for plain in (False, True):
+        layers.MIN_CHUNKED_SEQ = 1 << 30 if plain else floor
+        try:
+            outs.append(pipe("frozen, detailed", [clean, adv], num_inference_steps=10,
+                             strength=0.6, guidance_scale=7.5, noise=noise, vae_eps=eps,
+                             output_type="pt"))
+        finally:
+            layers.MIN_CHUNKED_SEQ = floor
     torch.cuda.synchronize()
-    out = {"unet_steps": pipe.plan(10, 0.6).num_steps, "max_abs_diff": max_err(*outs),
+    out = {"sampler": sampler, "image_size": model.image_size,
+           "unet_steps": pipe.plan(10, 0.6).num_steps, "max_abs_diff": max_err(*outs),
            "finite": bool(torch.isfinite(outs[0]).all() and torch.isfinite(outs[1]).all()),
            "mean_abs_diff": (outs[0] - outs[1]).abs().mean().item()}
     require(out["finite"] and out["max_abs_diff"] <= 1e-3, f"evaluate gate: {out}")
@@ -974,6 +1034,7 @@ def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, val_i
     from tml_image_editing_defense_torch.configs import INFERENCE_PROMPTS, InferenceConfig
     from tml_image_editing_defense_torch.core.samplers import PLMSSampler
     from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
+    from tml_image_editing_defense_torch.models.unet import SD15_UNET
 
     (tmp / "val.txt").write_text(f"{val_image}\n")
     out_dir = tmp / "eval"
@@ -995,7 +1056,8 @@ def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, val_i
     cfg = InferenceConfig()
     unet_steps = PLMSSampler(make_noise_schedule()).plan(cfg.n_steps, cfg.strength).num_steps
     batches = 2                             # the source image's cells, the validation image's
-    at_shape = {"unet": batches * unet_steps * UNET_LONG_ATTN, "vae": batches * 2}
+    at_shape = {"unet": batches * unet_steps * unet_long_attentions(SD15_UNET, cfg.image_size),
+                "vae": batches * 2}
     expected = {kern.symbol: 0 for kern in kernels}
     expected["tid_flash_fwd"] = sum(at_shape.values())
     require(launches == expected, ("evaluate", launches, expected))
@@ -1014,6 +1076,101 @@ def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, val_i
             "unet_steps": unet_steps, "cells": batches * EVAL_BATCH,
             "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
             "allocated_before_gb": before / 1e9,
+            "launches": launches, "expected_launches": expected, "k1_launches_at_shape": at_shape}
+
+
+def unet_long_attentions(unet_cfg, image_size: int) -> int:
+    """Self-attentions of one UNet call that go to K1 at ``image_size``: at
+    every level whose token count reaches the flash path's floor
+    (``layers.scaled_attention`` with the builds' chunk of 512), a level
+    with attention has ``layers_per_block`` transformers down and one more
+    up, each ``transformer_layers_per_block`` layers deep; the mid block
+    adds the last level's."""
+    from tml_image_editing_defense_torch.models import layers
+
+    floor = max(2 * 512, layers.MIN_CHUNKED_SEQ)
+    side, levels = image_size // 8, len(unet_cfg.block_out_channels)
+    count = sum((2 * unet_cfg.layers_per_block + 1) * unet_cfg.transformer_layers_per_block[i]
+                for i in range(levels)
+                if unet_cfg.cross_attention_blocks[i] and (side >> i) ** 2 >= floor)
+    if (side >> (levels - 1)) ** 2 >= floor:
+        count += unet_cfg.transformer_layers_per_block[-1]
+    return count
+
+
+def sdxl_eval_images(tmp: Path, eps: float) -> dict:
+    """A synthetic SDXL_EVAL_SIZE source and target, and an adversarial PNG
+    made from the source with a seeded Gaussian perturbation of L2 norm
+    0.9 ``eps`` (in [-1, 1] units); after the uint8 round trip it must lie
+    inside the ball.  Not an SDXL immunize at 1024x1024: training there waits
+    for a rematerialisation policy."""
+    import numpy as np
+    import torch
+
+    from tml_image_editing_defense_torch.core.image_ops import load_image, to_pil
+
+    size = SDXL_EVAL_SIZE
+    paths = {name: tmp / f"xl_{name}.png" for name in ("source", "target", "adversarial")}
+    synthetic_image(paths["source"], 101, (size, size))
+    synthetic_image(paths["target"], 102, (size, size))
+    src = torch.from_numpy(load_image(paths["source"], size))
+    delta = torch.from_numpy(np.random.default_rng(7).standard_normal(src.shape)).float()
+    delta *= 0.9 * eps / torch.linalg.vector_norm(delta)
+    to_pil((src + delta).clamp(-1, 1)).save(paths["adversarial"])
+    dist = torch.linalg.vector_norm(torch.from_numpy(load_image(paths["adversarial"], size))
+                                    - src).item()
+    require(dist <= eps, f"the SDXL adversarial PNG lies {dist:.2f} from its source (eps {eps})")
+    return {"paths": paths, "l2": dist}
+
+
+def sdxl_evaluate_path(cli, kernels, images: dict, tmp: Path) -> dict:
+    """``cli.main(["evaluate", "--use-sdxl", "true", "--image-size", "1024",
+    ...])`` on the card at the InferenceConfig defaults with the first of
+    INFERENCE_PROMPTS, n_noise 1 and no validation images: one cell, its
+    (clean, adv) pair as one pipeline call; every count set to 0 just before
+    and read just after.  K1 runs ``unet_long_attentions`` times in each
+    UNet call and once each in the VAE encode and decode."""
+    import torch
+    from PIL import Image
+
+    from tml_image_editing_defense_torch.configs import INFERENCE_PROMPTS, InferenceConfig
+    from tml_image_editing_defense_torch.core.samplers import EulerSampler
+    from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
+    from tml_image_editing_defense_torch.models.unet import SDXL_UNET
+
+    size, paths, out_dir = SDXL_EVAL_SIZE, images["paths"], tmp / "eval_sdxl"
+    prompt = INFERENCE_PROMPTS[0]
+    args = ["evaluate", "--use-sdxl", "true", "--image-size", str(size),
+            "--adversarial-image", str(paths["adversarial"]),
+            "--source-image-path", str(paths["source"]),
+            "--target-image-path", str(paths["target"]), "--output-path", str(out_dir),
+            "--n-noise", "1", "--validation-images-path", str(tmp / "no_validation.txt"),
+            "--prompts", prompt]
+    for kern in kernels:
+        kern.launches = 0
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rc = cli.main(args)                     # on the card: the CLI's default device
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"SDXL evaluate exited {rc}")
+    launches = {kern.symbol: kern.launches for kern in kernels}
+    cfg = InferenceConfig()
+    unet_steps = EulerSampler(make_noise_schedule()).plan(cfg.n_steps, cfg.strength).num_steps
+    at_shape = {"unet": unet_steps * unet_long_attentions(SDXL_UNET, size), "vae": 2}
+    expected = {kern.symbol: 0 for kern in kernels}
+    expected["tid_flash_fwd"] = sum(at_shape.values())
+    require(launches == expected, ("SDXL evaluate", launches, expected))
+    rows = [json.loads(r) for r in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    cells = [r for r in rows if "edit_dispatch_s" in r]
+    require(len(cells) == 1 and cells[0]["edit_pairs"] == 1, rows)
+    name = "-".join(f"{prompt}, detailed"[:30].split()) + "_noise_0.png"
+    with Image.open(out_dir / name) as grid:
+        require(grid.size[0] == 5 * size and grid.size[1] > size, (name, grid.size))
+    return {"wall_s": wall, "s_per_cell": cells[0]["edit_dispatch_s"], "unet_steps": unet_steps,
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+            "allocated_before_gb": before / 1e9, "adversarial_l2": images["l2"],
             "launches": launches, "expected_launches": expected, "k1_launches_at_shape": at_shape}
 
 
@@ -1043,11 +1200,13 @@ def free_card(held: Optional[dict] = None, after: str = "") -> None:
     torch.cuda.empty_cache()
     if held is not None:
         held[after] = gb = torch.cuda.memory_allocated() / 1e9
+        PHASE_END_S[after] = time.perf_counter() - STARTED
         require(gb <= HELD_LIMIT_GB, f"{gb:.2f} GB stay allocated after the {after} path")
 
 
 def main(argv) -> int:
     import argparse
+    import dataclasses
 
     import torch
 
@@ -1066,6 +1225,7 @@ def main(argv) -> int:
     from tml_image_editing_defense_torch.core.samplers import LCMSampler
     from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
     from tml_image_editing_defense_torch.models import layers
+    from tml_image_editing_defense_torch.models.unet import SD15_UNET, SDXL_UNET
     from tml_image_editing_defense_torch.ops import _lib
     from tml_image_editing_defense_torch.ops import flash_attention as fa
     from tml_image_editing_defense_torch.ops import pgd_kernels as pk
@@ -1091,7 +1251,9 @@ def main(argv) -> int:
     for shape, dtypes in ((UNET_SHAPE, (torch.float32, torch.bfloat16)),
                           (VAE_SHAPE, (torch.float32, torch.bfloat16)),
                           (ENC_ATTN_SHAPE, (torch.float32,)),
-                          (EVAL_UNET_SHAPE, (torch.float32,)), (EVAL_VAE_SHAPE, (torch.float32,))):
+                          (EVAL_UNET_SHAPE, (torch.float32,)), (EVAL_VAE_SHAPE, (torch.float32,)),
+                          (SDXL_EVAL_UNET_SHAPE, (torch.float32,)),
+                          (SDXL_EVAL_VAE_SHAPE, (torch.float32,))):
         for dtype in dtypes:
             r = check_flash(fa, shape, dtype, gen, times=True)
             flash[f"{shape}-{r['dtype']}"] = r
@@ -1104,6 +1266,7 @@ def main(argv) -> int:
                   + "; sdpa ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["library_ms"].items())
                   + f"; K1 {r['ms']['fwd']:.3f} ms against SDPA's forward "
                   f"{r['library_ms']['fwd']:.3f} ms ({r['ms']['fwd'] / r['library_ms']['fwd']:.2f}x)"
+                  + f" ({r['library_backend']['backend']} backend)"
                   + f"; K2+K3 {r['ms']['bwd']:.3f} ms against SDPA's backward "
                   f"{r['library_ms']['bwd']:.3f} ms ({r['ms']['bwd'] / r['library_ms']['bwd']:.2f}x)",
                   flush=True)
@@ -1116,6 +1279,7 @@ def main(argv) -> int:
     print("[kernels] flash ragged-tail shapes (T = 70..1000, D = 40/64/80/512, f32 and bf16) "
           "agree; K1-K3 refuse a misaligned tensor", flush=True)
     report["flash"], report["updates"] = flash, check_updates(pk, gen)
+    PHASE_END_S["kernels"] = time.perf_counter() - STARTED
 
     kernels = fa.KERNELS + pk.KERNELS
     held = report["held_after_gb"] = {}
@@ -1135,7 +1299,8 @@ def main(argv) -> int:
         cfg = TrainConfig(source_image_path=source, target_image_path=target,
                           output_path=tmp / "out", n_optimization_steps=ITERATIONS)
         n_vis = len({0, ITERATIONS - 1})
-        per_it = cfg.grad_reps * (2 * UNET_LONG_ATTN + 1) + 1
+        long_attn = unet_long_attentions(SD15_UNET, cfg.image_size)
+        per_it = cfg.grad_reps * (2 * long_attn + 1) + 1
         diff = immunize_path(
             api, cfg, kernels,
             {"tid_flash_fwd": per_it, "tid_flash_bwd_kv": per_it, "tid_flash_bwd_q": per_it,
@@ -1172,7 +1337,7 @@ def main(argv) -> int:
               f"<= 1e-3; launches {res['launches']}", flush=True)
         gate = report["evaluate_gate"] = evaluate_gate(
             result.model, Image.open(source).convert("RGB"),
-            Image.open(cfg.output_path / "adversarial_image.png").convert("RGB"))
+            Image.open(cfg.output_path / "adversarial_image.png").convert("RGB"), layers)
         print(f"[gate] one (clean, adv) pair, PLMS 10 steps at strength 0.6 ({gate['unet_steps']} "
               f"UNet calls), K1 against plain attention on the same weights: max abs diff "
               f"{gate['max_abs_diff']:.2e} (mean {gate['mean_abs_diff']:.2e}) <= 1e-3, finite",
@@ -1190,7 +1355,7 @@ def main(argv) -> int:
                            attack_mode="inpaint", norm_type="linf")
         n_unet = LCMSampler(make_noise_schedule()).plan(
             icfg.n_denoising_steps_per_iteration, limit_t=800, min_t=101).num_steps
-        per_it = icfg.grad_reps * (1 + n_unet * UNET_LONG_ATTN + 1)
+        per_it = icfg.grad_reps * (1 + n_unet * long_attn + 1)
         inpaint = immunize_path(
             api, icfg, kernels,
             {"tid_flash_fwd": per_it, "tid_flash_bwd_kv": per_it, "tid_flash_bwd_q": per_it,
@@ -1243,9 +1408,66 @@ def main(argv) -> int:
             Image.open(tmp / "out" / "adversarial_image.png").convert("RGB"))
         print_profile(f"evaluation batch ({EVAL_BATCH} pairs)", report["eval_profile"])
         free_card(held, "evaluation profile")
+
+        # ---- the SDXL path ------------------------------------------------
+        # At 512x512 no SDXL UNet attention reaches K1 (its 64x64 level has
+        # none, T <= 1024 elsewhere), so per iteration K1-K3 run in the shared
+        # encode and the 10 reps' decodes (VAE mid-block, forward + backward)
+        # and K4 once; outside: the target encode and the 2 vis decodes.
+        xcfg = TrainConfig(source_image_path=source, target_image_path=target,
+                           output_path=tmp / "out_sdxl", n_optimization_steps=ITERATIONS,
+                           use_sdxl=True)
+        per_it = xcfg.grad_reps * (2 * unet_long_attentions(SDXL_UNET, xcfg.image_size) + 1) + 1
+        xl = immunize_path(
+            api, xcfg, kernels,
+            {"tid_flash_fwd": per_it, "tid_flash_bwd_kv": per_it, "tid_flash_bwd_q": per_it,
+             "tid_pgd_l2_update": 1},
+            {"tid_flash_fwd": 1 + n_vis})
+        result, src, tgt = xl.pop("_result"), xl.pop("_src"), xl.pop("_tgt")
+        report["sdxl_path"] = xl
+        print(f"[sdxl] immunize sdxl 512x512 f32, {ITERATIONS} iterations x {xcfg.grad_reps} reps: "
+              f"{xl['wall_s']:.1f} s in all, {xl['s_per_iteration_after_first']:.2f} s/iteration "
+              f"after the first, peak {xl['max_memory_allocated_gb']:.1f} GB above the "
+              f"{xl['allocated_before_gb']:.2f} GB allocated before; losses "
+              f"{[round(h['avg_loss'], 4) for h in xl['history']]}; |x_adv - src|_2 = "
+              f"{xl['dist']:.3f} <= {xcfg.eps}; launches {xl['launches']}", flush=True)
+        inputs = one_iteration_inputs(result.model, xcfg, src, tgt)
+        report["sdxl_vs_plain"] = check_iteration_against_plain(result.model, xcfg, inputs, layers)
+        print(f"[model] one SDXL 512x512 PGD iteration, kernels vs plain attention and plain "
+              f"update: {report['sdxl_vs_plain']}", flush=True)
+        report["sdxl_profile"] = profile_iteration(result.model, xcfg, inputs)
+        print_profile("SDXL PGD iteration", report["sdxl_profile"])
+        del inputs, src, tgt
+        free_card()
+        xl_images = sdxl_eval_images(tmp, xcfg.eps)
+        gate = report["sdxl_evaluate_gate"] = evaluate_gate(
+            dataclasses.replace(result.model, image_size=SDXL_EVAL_SIZE),
+            *(Image.open(xl_images["paths"][k]).convert("RGB") for k in ("source", "adversarial")),
+            layers, sampler=api.training_sampler_kind(result.model.base_family, use_lcm=False))
+        print(f"[gate] one SDXL (clean, adv) pair at {SDXL_EVAL_SIZE}x{SDXL_EVAL_SIZE}, "
+              f"{gate['sampler']} 10 steps at strength 0.6 ({gate['unet_steps']} UNet calls), K1 "
+              f"against plain attention on the same weights: max abs diff "
+              f"{gate['max_abs_diff']:.2e} (mean {gate['mean_abs_diff']:.2e}) <= 1e-3, finite",
+              flush=True)
+        del result
+        free_card(held, "sdxl")
+
+        # ---- SDXL evaluate at 1024x1024, through the CLI ---------------------
+        xev = report["sdxl_evaluate_path"] = sdxl_evaluate_path(cli, kernels, xl_images, tmp)
+        print(f"[sdxl-evaluate] evaluate sdxl {SDXL_EVAL_SIZE}x{SDXL_EVAL_SIZE} f32, Euler "
+              f"{xev['unet_steps']} UNet calls an edit, one cell: {xev['s_per_cell']:.2f} s a "
+              f"cell, {xev['wall_s']:.1f} s in all (model build included); peak "
+              f"{xev['max_memory_allocated_gb']:.2f} GB above the "
+              f"{xev['allocated_before_gb']:.2f} GB allocated before; launches {xev['launches']} "
+              f"(K1 {xev['k1_launches_at_shape']}); adversarial PNG at L2 "
+              f"{xev['adversarial_l2']:.2f}", flush=True)
+        free_card(held, "sdxl-evaluate")
         print("[memory] GB allocated on the card after each path: "
               + ", ".join(f"{k} {v:.3f}" for k, v in held.items())
               + f" (limit {HELD_LIMIT_GB})", flush=True)
+        report["phase_end_s"] = PHASE_END_S
+        print("[time] seconds since the start at the end of each phase: "
+              + ", ".join(f"{k} {v:.0f}" for k, v in PHASE_END_S.items()), flush=True)
 
     report["kernels"] = rows = kernel_rows(flash, report["updates"], report)
     if report_path is not None:
@@ -1276,18 +1498,26 @@ def kernel_rows(flash, updates, report) -> list:
                 "inpaint": report["inpaint_path"]["launches"],
                 "encoder": report["encoder_path"]["launches"],
                 "resume": report["resume"]["launches"],
-                "evaluate": report["evaluate_path"]["launches"]}
+                "evaluate": report["evaluate_path"]["launches"],
+                "sdxl": report["sdxl_path"]["launches"],
+                "sdxl-evaluate": report["sdxl_evaluate_path"]["launches"]}
     by_path = lambda sym: {path: counts[sym] for path, counts in launches.items()}  # noqa: E731
-    at_shape = report["evaluate_path"]["k1_launches_at_shape"]
+    at_shape = {(path, shape): report[f"{path.replace('-', '_')}_path"]["k1_launches_at_shape"][part]
+                for path, (unet, vae) in (("evaluate", (EVAL_UNET_SHAPE, EVAL_VAE_SHAPE)),
+                                          ("sdxl-evaluate", (SDXL_EVAL_UNET_SHAPE,
+                                                             SDXL_EVAL_VAE_SHAPE)))
+                for part, shape in (("unet", unet), ("vae", vae))}
     rows = []
     for path, shape in (("diffusion", UNET_SHAPE), ("inpaint", UNET_SHAPE),
                         ("encoder", ENC_ATTN_SHAPE), ("evaluate", EVAL_UNET_SHAPE),
-                        ("evaluate", EVAL_VAE_SHAPE)):
+                        ("evaluate", EVAL_VAE_SHAPE), ("sdxl", VAE_SHAPE),
+                        ("sdxl-evaluate", SDXL_EVAL_UNET_SHAPE),
+                        ("sdxl-evaluate", SDXL_EVAL_VAE_SHAPE)):
         r = flash[f"{shape}-float32"]
         for name, sym, key, line in (("flash_fwd", "tid_flash_fwd", "fwd", 69),
                                      ("flash_bwd_kv", "tid_flash_bwd_kv", "bwd_kv", 148),
                                      ("flash_bwd_q", "tid_flash_bwd_q", "bwd_q", 185)):
-            if path == "evaluate" and key != "fwd":
+            if (path, shape) in at_shape and key != "fwd":
                 continue                    # evaluation runs the forward only
             row = {
                 "name": name, "route": "cuda", "source": src_fa, "replaces": f"{tpu_fa}:{line}",
@@ -1297,15 +1527,16 @@ def kernel_rows(flash, updates, report) -> list:
                 "plain_ms": r["plain_ms"][key],
                 "bound_ms": r["bound"][key][0], "bound_by": r["bound"][key][1],
                 "library_ms": r["library_ms"]["fwd" if key == "fwd" else "bwd"],
-                "library_call": ("scaled_dot_product_attention forward" if key == "fwd" else
-                                 "scaled_dot_product_attention backward: K2 and K3 together"),
+                "library_call": (f"scaled_dot_product_attention forward "
+                                 f"({r['library_backend']['backend']} backend)" if key == "fwd"
+                                 else "scaled_dot_product_attention backward: K2 and K3 together"),
                 "path": path, "shape": list(shape), "dtype": "float32", "ok": True,
             }
-            if path == "evaluate":
-                row["launches_at_shape"] = at_shape["unet" if shape == EVAL_UNET_SHAPE else "vae"]
+            if (path, shape) in at_shape:
+                row["launches_at_shape"] = at_shape[(path, shape)]
             rows.append(row)
-    update_rows = [("pgd_l2_update", "diffusion", "tid_pgd_l2_update", 118,
-                    updates["l2"]["f32"])]
+    update_rows = [("pgd_l2_update", path, "tid_pgd_l2_update", 118, updates["l2"]["f32"])
+                   for path in ("diffusion", "sdxl")]
     update_rows += [("pgd_linf_update", path, "tid_pgd_linf_update", 64,
                      updates["linf"][f"{shape}-float32"])
                     for path, shape in (("inpaint", IMAGE_SHAPE), ("encoder", ENC_IMAGE_SHAPE))]

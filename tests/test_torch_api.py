@@ -133,7 +133,6 @@ def test_evaluate_without_a_device_raises_where_cuda_is_absent(tmp_path):
     {"params_path": "weights.msgpack"},
     {"use_segmentation_mask": True},
     {"add_image_caption_to_prompts": True},
-    {"use_sdxl": True, "model_family": None},
 ])
 def test_later_slices_raise_not_implemented(tmp_path, kw):
     with pytest.raises(NotImplementedError):
@@ -142,9 +141,6 @@ def test_later_slices_raise_not_implemented(tmp_path, kw):
 
 @pytest.mark.parametrize("kw", [
     {"eval_shards": 2},
-    {"aesthetic_score": 6.0},
-    {"negative_aesthetic_score": 2.5},
-    {"use_sdxl": True},
     {"add_image_caption_to_prompts": True},
     {"tokenizer_paths": ["tok"]},
 ])

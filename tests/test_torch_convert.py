@@ -2,9 +2,9 @@
 
 ``from_jax_params`` must give exactly what the JAX package's
 ``export_state_dict`` gives (key for key, value for value); the port's
-SD-1.5 modules, built on the meta device (no memory, no weights), must hold
-exactly the keys and shapes of the real checkpoints (tests/manifests/,
-enumerated independently of either converter).
+SD-1.5 and SDXL modules, built on the meta device (no memory, no weights),
+must hold exactly the keys and shapes of the real checkpoints
+(tests/manifests/, enumerated independently of either converter).
 """
 
 from __future__ import annotations
@@ -43,9 +43,33 @@ def test_from_jax_params_equals_export_state_dict(jtiny_params, part, kind):
         np.testing.assert_array_equal(got[key].numpy(), arr, err_msg=key)
 
 
+@pytest.fixture(scope="module")
+def jtiny_sdxl_params():
+    m = jax_build_model("tiny-sdxl", key=jax.random.key(2), image_size=32, fast_init=True)
+    return jax.device_get(m.params)
+
+
+@pytest.mark.parametrize("part,kind,index", [("unet", "unet", None), ("text", "clip", 0),
+                                              ("text", "clip", 1)])
+def test_from_jax_params_carries_the_sdxl_parts(jtiny_sdxl_params, part, kind, index):
+    """The tiny-sdxl UNet with its ``add_embedding``, and both text encoders
+    (encoder 2's ``text_projection`` among them), convert as the JAX
+    package exports them."""
+    params = jtiny_sdxl_params[part] if index is None else jtiny_sdxl_params[part][index]
+    want = export_state_dict(params, kind)
+    got = from_jax_params(params, kind)
+    assert set(got) == set(want)
+    assert {"unet": "add_embedding.linear_2.weight", "clip": "text_projection.weight"}[kind] in got
+    for key, arr in want.items():
+        np.testing.assert_array_equal(got[key].numpy(), arr, err_msg=key)
+
+
 def _assert_matches_manifest(family, part, name):
     model = build_model(family, device="meta")
-    module = model.text_models[0] if part == "text" else getattr(model, part)
+    if part.startswith("text"):
+        module = model.text_models[int(part[len("text"):] or 0)]
+    else:
+        module = getattr(model, part)
     got = {k: tuple(v.shape) for k, v in module.state_dict().items()}
     want = {k: tuple(v) for k, v in json.loads((MANIFESTS / f"{name}.json").read_text()).items()}
     assert sorted(set(want) - set(got)) == []
@@ -57,6 +81,15 @@ def _assert_matches_manifest(family, part, name):
                                         ("text", "sd15_text")])
 def test_sd15_modules_match_checkpoint_manifest(part, name):
     _assert_matches_manifest("sd15", part, name)
+
+
+@pytest.mark.parametrize("part,name", [("unet", "sdxl_unet"), ("vae", "sdxl_vae"),
+                                        ("text0", "sdxl_text"), ("text1", "sdxl_text_2")])
+def test_sdxl_modules_match_checkpoint_manifest(part, name):
+    """SDXL's UNet (text_time embedding, depth-0 level, linear projections,
+    10-layer mid block), VAE and both encoders (CLIP-L; bigG with its
+    projection)."""
+    _assert_matches_manifest("sdxl", part, name)
 
 
 def test_sd15_inpaint_unet_matches_checkpoint_manifest():

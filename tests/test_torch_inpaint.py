@@ -140,7 +140,10 @@ def test_inpaint_forward_matches_jax_and_golden(models):
 @pytest.mark.parametrize("family", ["sd15", "sd15-inpaint", "tiny", "tiny-inpaint", "sdxl"])
 @pytest.mark.parametrize("use_lcm", [True, False])
 def test_training_sampler_kind_matches_jax(family, use_lcm):
-    """Without LCM the inpaint families train with Euler, as in the JAX package."""
+    """The rule on one and the same family string equals the JAX package's.
+    A model passes its base family ("sd15" for sd15-inpaint, so PLMS without
+    LCM), as tests/test_torch_sdxl.py::
+    test_training_sampler_follows_the_jax_base_family holds."""
     assert api.training_sampler_kind(family, use_lcm) == j_training_sampler_kind(family, use_lcm)
 
 
@@ -159,6 +162,31 @@ def test_inpaint_forward_euler_matches_jax(models):
     sampler = make_sampler(api.training_sampler_kind("tiny-inpaint", False), pm.schedule)
     plan = sampler.plan(4, limit_t=800, min_t=101)
     assert plan.kind == "euler" and plan.num_steps == 3
+    k_lat, k_vae, _ = jax.random.split(key, 3)
+    lat, eps = (nchw(np.asarray(jax.random.normal(k, LAT, jnp.float32))) for k in (k_lat, k_vae))
+    with torch.no_grad():
+        got = inpaint_attack_forward(pm, sampler, plan, nchw(image),
+                                     CondInputs(ctx=torch.tensor(ctx)), GS, lat, eps, None)
+    np.testing.assert_allclose(nhwc(got), np.asarray(want), **TOL)
+
+
+def test_inpaint_forward_plms_matches_jax(models):
+    """The inpaint forward with PLMS, the sampler SD-1.5-inpaint trains with
+    without LCM (its base family is "sd15"; JAX api.py:56-62): the eps
+    history carried through the window's steps, against the JAX forward on
+    the same key."""
+    jmodel, pm = models
+    assert api.training_sampler_kind(build_model("sd15-inpaint", device="meta").base_family,
+                                     False) == "plms"
+    image = np.clip(_rand(1, (1, SIZE, SIZE, 3), 0.4), -1, 1)
+    ctx = _rand(14, (2, 7, 32))
+    key = jax.random.key(17)
+    jsampler = j_make_sampler("plms", jmodel.schedule)
+    want = j_inpaint_attack_forward(jmodel, jsampler, jsampler.plan(4, limit_t=800, min_t=101),
+                                    jmodel.params, jnp.asarray(image), JCond(ctx=jnp.asarray(ctx)),
+                                    GS, key, remat_policy="none")
+    sampler = make_sampler("plms", pm.schedule)
+    plan = sampler.plan(4, limit_t=800, min_t=101)
     k_lat, k_vae, _ = jax.random.split(key, 3)
     lat, eps = (nchw(np.asarray(jax.random.normal(k, LAT, jnp.float32))) for k in (k_lat, k_vae))
     with torch.no_grad():

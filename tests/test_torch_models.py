@@ -64,13 +64,15 @@ def nhwc(x_nchw: torch.Tensor) -> np.ndarray:
 def port_model_from_jax(jmodel, attn_kv_chunk=None, family=None):
     """A CPU port bundle of ``jmodel``'s family carrying its weights
     (``family`` names it where the JAX bundle keeps only its base family,
-    as for ``tiny-inpaint``)."""
+    as for ``tiny-inpaint`` and ``tiny-sdxl``)."""
     pm = build_model(family or jmodel.family, image_size=jmodel.image_size, device="cpu",
                      attn_kv_chunk=attn_kv_chunk)
     params = jax.device_get(jmodel.params)
     pm.unet.load_state_dict(from_jax_params(params["unet"], "unet"))
     pm.vae.load_state_dict(from_jax_params(params["vae"], "vae"))
-    pm.text_models[0].load_state_dict(from_jax_params(params["text"][0], "clip"))
+    assert len(pm.text_models) == len(params["text"])
+    for text_model, text_params in zip(pm.text_models, params["text"]):
+        text_model.load_state_dict(from_jax_params(text_params, "clip"))
     return pm
 
 

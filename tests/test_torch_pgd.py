@@ -67,29 +67,41 @@ def _rand(seed, shape, scale=1.0):
 
 
 def golden_jax_model(family: str = "tiny"):
-    """The goldens' JAX model of ``family`` ("tiny" or "tiny-inpaint"; key 0,
-    flax init).  The flax inits run under ``jax.jit`` (half the time of
-    build_model's eager init; the same keys give the same weights to within
-    1e-7)."""
+    """The goldens' JAX model of ``family`` ("tiny", "tiny-inpaint",
+    "tiny-sdxl" or "tiny-sdxl-refiner"; key 0, flax init of each part from
+    ``split(key, 2 + encoders)`` as build_model draws them).  The flax inits
+    run under ``jax.jit`` (half the time of build_model's eager init; the
+    same keys give the same weights to within 1e-7)."""
     from tml_image_editing_defense_tpu.models.clip_text import TINY_TEXT, CLIPTextModel
     from tml_image_editing_defense_tpu.models.unet import (
         TINY_INPAINT_UNET,
+        TINY_SDXL_REFINER_UNET,
+        TINY_SDXL_UNET,
         TINY_UNET,
         UNet2DCondition,
     )
     from tml_image_editing_defense_tpu.models.vae import TINY_VAE, AutoencoderKL
 
-    unet_cfg = {"tiny": TINY_UNET, "tiny-inpaint": TINY_INPAINT_UNET}[family]
-    k_unet, k_vae, k_txt = jax.random.split(jax.random.key(0), 3)
+    unet_cfg = {"tiny": TINY_UNET, "tiny-inpaint": TINY_INPAINT_UNET, "tiny-sdxl": TINY_SDXL_UNET,
+                "tiny-sdxl-refiner": TINY_SDXL_REFINER_UNET}[family]
+    n_text = 2 if "sdxl" in family else 1
+    k_unet, k_vae, *k_txt = jax.random.split(jax.random.key(0), 2 + n_text)
     zeros = jnp.zeros
+    kwargs = {}
+    if unet_cfg.addition_embed_type == "text_time":
+        # build_model's init shapes: the pooled width left beside 6 time ids
+        pooled = (unet_cfg.projection_class_embeddings_input_dim
+                  - 6 * unet_cfg.addition_time_embed_dim)
+        kwargs = dict(text_embeds=zeros((1, pooled)), time_ids=zeros((1, 6)))
+    text_init = jax.jit(lambda k: CLIPTextModel(TINY_TEXT).init(
+        k, zeros((1, 16), jnp.int32))["params"])
     params = {
         "unet": jax.jit(lambda k: UNet2DCondition(unet_cfg).init(
             k, zeros((1, 16, 16, unet_cfg.in_channels)), zeros((), jnp.int32),
-            zeros((1, 16, 32)))["params"])(k_unet),
+            zeros((1, 16, unet_cfg.cross_attention_dim)), **kwargs)["params"])(k_unet),
         "vae": jax.jit(lambda k: AutoencoderKL(TINY_VAE).init(
             k, zeros((1, SIZE, SIZE, 3)), jax.random.key(0))["params"])(k_vae),
-        "text": (jax.jit(lambda k: CLIPTextModel(TINY_TEXT).init(
-            k, zeros((1, 16), jnp.int32))["params"])(k_txt),),
+        "text": tuple(text_init(k) for k in k_txt),
     }
     return jax_build_model(family, image_size=SIZE, params=params)
 

@@ -70,8 +70,10 @@ class ImmunizeResult:
 
 def training_sampler_kind(family: str, use_lcm: bool) -> str:
     """The scheduler of ``Trainer.load_models`` (main.py:278-309): LCM when
-    fused, else PLMS for the ``sd15`` family and Euler for every other one
-    (the inpaint families too), as the JAX package picks it (api.py:56-62)."""
+    fused, else PLMS for the ``sd15`` base family and Euler for the others,
+    as the JAX package picks it (api.py:56-62).  ``family`` is the base
+    family (``DiffusionModel.base_family``): "sd15" for SD-1.5-inpaint too,
+    "sdxl" for every SDXL family, as the JAX ``model.family`` holds it."""
     if use_lcm:
         return "lcm"
     return "plms" if family == "sd15" else "euler"
@@ -88,9 +90,7 @@ def _default_family(cfg) -> str:
                              "inpaint attack is SD-1.5 only); unset use_sdxl or pick "
                              "model_family explicitly")
         return "sd15-inpaint"
-    if cfg.use_sdxl:
-        raise NotImplementedError("SDXL comes with the SDXL slice of the port")
-    return "sd15"
+    return "sdxl" if cfg.use_sdxl else "sd15"
 
 
 def _train_attn_chunk(image_size: int) -> Optional[int]:
@@ -105,16 +105,10 @@ _LATER = {
     "params_path": "real-weight slice",
     "tokenizer_paths": "real-weight slice",
 }
-_LATER_EVAL = {
-    "use_sdxl": "SDXL slice",
-    "aesthetic_score": "SDXL slice",
-    "negative_aesthetic_score": "SDXL slice",
-    **_LATER,
-}
 
 
-def _refuse_later(cfg, later: dict) -> None:
-    for name, slice_ in later.items():
+def _refuse_later(cfg) -> None:
+    for name, slice_ in _LATER.items():
         value = getattr(cfg, name, None)
         if value is not None and value is not False:
             raise NotImplementedError(f"{name} comes with the {slice_} of the port")
@@ -123,7 +117,7 @@ def _refuse_later(cfg, later: dict) -> None:
 def _check_supported(cfg: TrainConfig) -> None:
     if cfg.attack_mode not in ("diffusion", "inpaint"):
         raise ValueError(f"unknown attack_mode {cfg.attack_mode!r}")
-    _refuse_later(cfg, _LATER)
+    _refuse_later(cfg)
 
 
 def immunize(
@@ -181,7 +175,7 @@ def immunize(
     noise_pool = make_noise_pool(setup, max(cfg.n_noise, 1), lat_shape, dtype, device)
     target_eps = torch.randn(lat_shape, generator=setup, device=device, dtype=dtype)
 
-    sampler = make_sampler(training_sampler_kind(model.family, cfg.use_lcm), model.schedule)
+    sampler = make_sampler(training_sampler_kind(model.base_family, cfg.use_lcm), model.schedule)
     if is_inpaint:
         # the legacy window 100 < t < 800 (old/yuval_playground.py:106)
         plan = sampler.plan(cfg.n_denoising_steps_per_iteration, limit_t=800, min_t=101)
@@ -290,7 +284,7 @@ def transfer_perturbation(
 
 
 def _check_eval_supported(cfg: InferenceConfig) -> None:
-    _refuse_later(cfg, _LATER_EVAL)
+    _refuse_later(cfg)
     if cfg.eval_shards not in (None, 1):
         raise NotImplementedError(f"eval_shards={cfg.eval_shards} comes with the multi-GPU "
                                   "slice of the port (one card: None or 1)")
@@ -333,7 +327,8 @@ def evaluate(
     ``batch_edits`` (default: below 1024x1024) runs the cells in batches of
     ``eval_batch_size`` (each 2 images x CFG through the UNet), the last
     batch padded with copies of its last cell so every batch has one shape;
-    each batch's seconds go to ``metrics.jsonl`` as ``edit_dispatch_s``."""
+    each batch's seconds (each cell's, when they run one at a time) go to
+    ``metrics.jsonl`` as ``edit_dispatch_s``."""
     del training_prompts  # accepted for signature parity; unused (main.py:469)
     _check_eval_supported(cfg)
     if batch_edits is None:
@@ -347,7 +342,8 @@ def evaluate(
                             attn_kv_chunk=EVAL_ATTN_CHUNK)
     device = model.device
     inference_prompts = list(inference_prompts or INFERENCE_PROMPTS)
-    pipeline = Img2ImgPipeline(model, sampler=training_sampler_kind(model.family, cfg.use_lcm))
+    pipeline = Img2ImgPipeline(model,
+                               sampler=training_sampler_kind(model.base_family, cfg.use_lcm))
     plan = pipeline.plan(cfg.n_steps, cfg.strength, None, cfg.denoising_end)
     gen = stream_generator(cfg.seed, EVAL_STREAM, device)
     size = cfg.image_size
@@ -386,11 +382,16 @@ def evaluate(
         pair = pipeline.prepare_image([clean_img, adv_img])
         kw = dict(num_inference_steps=cfg.n_steps, guidance_scale=cfg.guidance_scale,
                   strength=cfg.strength, negative_prompt=cfg.negative_prompt,
-                  denoising_end=cfg.denoising_end)
+                  denoising_end=cfg.denoising_end, aesthetic_score=cfg.aesthetic_score,
+                  negative_aesthetic_score=cfg.negative_aesthetic_score)
         if not batch_edits:
-            return [tuple(pipeline(prompt, [clean_img, adv_img], noise=pair_noise,
-                                   vae_eps=vae_eps, step_noise=step_noise, **kw))
-                    for prompt, _, pair_noise, vae_eps, step_noise in cells]
+            outs = []
+            for prompt, _, pair_noise, vae_eps, step_noise in cells:
+                t0 = time.perf_counter()
+                outs.append(tuple(pipeline(prompt, [clean_img, adv_img], noise=pair_noise,
+                                           vae_eps=vae_eps, step_noise=step_noise, **kw)))
+                logger.log({"edit_dispatch_s": time.perf_counter() - t0, "edit_pairs": 1})
+            return outs
         b = max(1, min(eval_batch_size, len(cells)))
         outs = []
         for i in range(0, len(cells), b):

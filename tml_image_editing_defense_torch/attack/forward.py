@@ -20,13 +20,39 @@ from tml_image_editing_defense_torch.models.model_zoo import DiffusionModel
 class CondInputs:
     """CFG-ready conditioning for one forward: stacked [uncond; cond]."""
 
-    ctx: torch.Tensor                      # [2, S, D]
+    ctx: torch.Tensor                                 # [2, S, D]
+    text_embeds: Optional[torch.Tensor] = None        # SDXL pooled, [2, P]
+    time_ids: Optional[torch.Tensor] = None           # SDXL, [2, 6] or [2, 5]
 
 
-def select_cond(bank_embeds: torch.Tensor, bank_uncond: torch.Tensor,
-                prompt_idx: int) -> CondInputs:
-    """Prompt row ``prompt_idx`` of the bank, stacked under the unconditional row."""
-    return CondInputs(ctx=torch.stack([bank_uncond, bank_embeds[prompt_idx]]))
+def make_time_ids(image_size: int = 512, dtype=torch.float32, device=None,
+                  aesthetic_score: Optional[float] = None,
+                  negative_aesthetic_score: Optional[float] = None) -> torch.Tensor:
+    """SDXL micro-conditioning ids, [neg; pos] for CFG (reference
+    main.py:368-383): original size, crop (0, 0) and target size, the
+    6-tuple.  With ``aesthetic_score``, the refiner's 5-tuple (original
+    size, crop, score; the negative row takes ``negative_aesthetic_score``,
+    2.5 unless given; sdxl_img2img_pipeline.py:344-378)."""
+    base = [image_size, image_size, 0, 0]
+    if aesthetic_score is not None:
+        neg = 2.5 if negative_aesthetic_score is None else negative_aesthetic_score
+        rows = [base + [neg], base + [aesthetic_score]]
+    else:
+        rows = [base + [image_size, image_size]] * 2
+    return torch.tensor(rows, dtype=dtype, device=device)
+
+
+def select_cond(bank_embeds: torch.Tensor, bank_uncond: torch.Tensor, prompt_idx,
+                bank_pooled: Optional[torch.Tensor] = None,
+                bank_uncond_pooled: Optional[torch.Tensor] = None,
+                time_ids: Optional[torch.Tensor] = None) -> CondInputs:
+    """Prompt row ``prompt_idx`` of the bank, stacked under the unconditional
+    row; the pooled rows likewise where the bank has them."""
+    te = None
+    if bank_pooled is not None:
+        te = torch.stack([bank_uncond_pooled, bank_pooled[prompt_idx]])
+    return CondInputs(ctx=torch.stack([bank_uncond, bank_embeds[prompt_idx]]), text_embeds=te,
+                      time_ids=time_ids)
 
 
 def denoise_chain(
@@ -52,7 +78,8 @@ def denoise_chain(
         latent_in = sampler.scale_model_input(plan, i, torch.cat([x, x], dim=0))
         if extra_channels is not None:
             latent_in = torch.cat([latent_in, extra_channels], dim=1)
-        eps = model.apply_unet(latent_in, int(plan.t_eval[i]), cond.ctx)
+        eps = model.apply_unet(latent_in, int(plan.t_eval[i]), cond.ctx, cond.text_embeds,
+                               cond.time_ids)
         eps_uncond, eps_text = eps[:b], eps[b:]
         guided = eps_uncond + guidance_scale * (eps_text - eps_uncond)
         noise = step_noise[i].expand_as(x) if sampler.uses_step_noise else None

@@ -22,7 +22,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from tml_image_editing_defense_torch.attack.forward import CondInputs, denoise_chain, select_cond
+from tml_image_editing_defense_torch.attack.forward import CondInputs, denoise_chain
 from tml_image_editing_defense_torch.attack.losses import lp_distance, perturbation_loss
 from tml_image_editing_defense_torch.attack.pgd import (
     AttackData,
@@ -85,7 +85,7 @@ def make_inpaint_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: Den
     need_pixels = cfg.apply_loss_on_images or cfg.perturbation_loss_lambda > 0
 
     def rep_loss(x_adv, data: AttackData, draws: EOTDraws, r: int):
-        cond = select_cond(data.bank_embeds, data.bank_uncond, draws.rep_prompt(r))
+        cond = data.cond(draws.rep_prompt(r))
         out_latent = inpaint_attack_forward(
             model, sampler, plan, x_adv, cond, cfg.guidance_scale, draws.init_noise[r][None],
             draws.vae_eps[r][None], draws.step_noise[r])

@@ -28,7 +28,9 @@ import numpy as np
 import torch
 
 from tml_image_editing_defense_torch.attack.forward import (
+    CondInputs,
     attack_forward_from_latent,
+    make_time_ids,
     select_cond,
 )
 from tml_image_editing_defense_torch.attack.losses import lp_distance, perturbation_loss
@@ -122,7 +124,15 @@ class AttackData:
     bank_embeds: torch.Tensor           # [P, S, D]
     bank_uncond: torch.Tensor           # [S, D]
     noise_pool: torch.Tensor            # [N, 1, C, h, w]
+    bank_pooled: Optional[torch.Tensor] = None          # SDXL [P, Dp]
+    bank_uncond_pooled: Optional[torch.Tensor] = None   # SDXL [Dp]
+    time_ids: Optional[torch.Tensor] = None             # SDXL [2, 6]
     mask: Optional[torch.Tensor] = None  # [1, 1, H, W]
+
+    def cond(self, prompt_idx) -> CondInputs:
+        """The CFG conditioning of bank row ``prompt_idx``."""
+        return select_cond(self.bank_embeds, self.bank_uncond, prompt_idx, self.bank_pooled,
+                           self.bank_uncond_pooled, self.time_ids)
 
 
 @torch.no_grad()
@@ -138,7 +148,11 @@ def make_attack_data(
 ) -> AttackData:
     """Assemble the attack's inputs (Trainer.run setup, main.py:61-75); the
     target latent is a posterior draw with ``target_latent_eps``, or the
-    mean when it is None."""
+    mean when it is None.  A pooled (SDXL) bank brings the 6-tuple of time
+    ids at ``cfg.image_size``."""
+    time_ids = None
+    if bank.pooled is not None:
+        time_ids = make_time_ids(cfg.image_size, source.dtype, source.device)
     return AttackData(
         source=source,
         target=target,
@@ -146,6 +160,9 @@ def make_attack_data(
         bank_embeds=bank.embeds,
         bank_uncond=bank.uncond,
         noise_pool=noise_pool,
+        bank_pooled=bank.pooled,
+        bank_uncond_pooled=bank.uncond_pooled,
+        time_ids=time_ids,
         mask=mask if cfg.use_segmentation_mask else None,
     )
 
@@ -220,7 +237,7 @@ def _rep_loss_from_dist(model: DiffusionModel, sampler: BaseSampler, plan: Denoi
             noise = draws.init_noise[r][None]
         else:
             noise = data.noise_pool[draws.pool_idx[r]]
-        cond = select_cond(data.bank_embeds, data.bank_uncond, draws.rep_prompt(r))
+        cond = data.cond(draws.rep_prompt(r))
         z = sample_latent(mean, logvar, draws.vae_eps[r][None]) * model.vae_scaling
         out_latent = attack_forward_from_latent(
             model, sampler, plan, z, cond, noise, cfg.guidance_scale, draws.step_noise[r])

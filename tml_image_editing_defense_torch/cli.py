@@ -7,6 +7,10 @@ Flags are made from the ``TrainConfig`` and ``InferenceConfig`` fields, one
     python -m tml_image_editing_defense_torch.cli evaluate \\
         --adversarial-image out/adversarial_image.png --noise-pool out/noise.npz ...
 
+SDXL: ``--use-sdxl true`` (immunize at the default 512x512; evaluate at its
+native ``--image-size 1024``); on the CPU the tiny test family,
+``--device cpu --model-family tiny-sdxl``.
+
 The JAX package's ``immunize-batch`` and ``sweep`` come with the multi-GPU
 slice of the port.
 """

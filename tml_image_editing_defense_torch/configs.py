@@ -176,11 +176,14 @@ class TrainConfig:
     image_visualization_interval: int = 25
 
     # --- model selection ---
+    #: SDXL (the "sdxl" family) in place of SD-1.5; trained at image_size,
+    #: 512 by default, as the reference trains it
     use_sdxl: bool = False
     use_lcm: bool = True
     image_size: int = 512
-    #: "sd15" | "sd15-inpaint" | "tiny" | "tiny-inpaint"; None derives from
-    #: attack_mode (and use_sdxl).
+    #: "sd15" | "sd15-inpaint" | "sdxl" | "tiny" | "tiny-inpaint" |
+    #: "tiny-sdxl" | "tiny-sdxl-refiner"; None derives from attack_mode and
+    #: use_sdxl.
     model_family: Optional[str] = None
     #: "diffusion" (the reference's live path) | "inpaint" (PhotoGuard's
     #: attack on the 9-channel inpaint UNet, attack/inpaint.py).
@@ -236,8 +239,7 @@ class InferenceConfig:
     """Evaluation configuration (reference ``configs.py:162-193``).
 
     ``eval_shards`` takes None or 1 (one card).  ``api.evaluate`` refuses
-    the knobs of later slices: ``use_sdxl``, ``aesthetic_score`` and
-    ``negative_aesthetic_score`` (SDXL), ``add_image_caption_to_prompts``
+    the knobs of later slices: ``add_image_caption_to_prompts``
     (aux models), ``params_path`` and ``tokenizer_paths`` (real weights)."""
 
     source_image_path: Path = Path("data/images/japan.jpg")
@@ -258,6 +260,8 @@ class InferenceConfig:
     validation_images_path: Optional[Path] = Path("validation_images.txt")
 
     # --- model selection ---
+    #: SDXL (the "sdxl" family; Euler without LCM); its native size is
+    #: image_size=1024, where the edits run one cell at a time
     use_sdxl: bool = False
     use_lcm: bool = False
     image_size: int = 512
@@ -265,7 +269,9 @@ class InferenceConfig:
 
     # --- SDXL refiner-style knobs (sdxl_img2img_pipeline.py:306-320, 344-378) ---
     denoising_end: Optional[float] = None
+    #: set: the refiner's 5-tuple of time ids (a "tiny-sdxl-refiner" UNet)
     aesthetic_score: Optional[float] = None
+    #: the negative row's score in that 5-tuple (2.5 when unset)
     negative_aesthetic_score: Optional[float] = None
 
     # --- knobs without a reference equivalent ---

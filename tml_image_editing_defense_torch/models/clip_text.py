@@ -1,5 +1,5 @@
-"""CLIP text encoder (port of ``models/clip_text.py``; the SD-1.5 encoder and
-the tiny test preset).
+"""CLIP text encoders (port of ``models/clip_text.py``): SD-1.5's, SDXL's two
+(CLIP-L and OpenCLIP-bigG with its projection) and the tiny test preset.
 
 Submodule names are the transformers ``CLIPTextModel`` state-dict names
 (``text_model.encoder.layers.0.self_attn.q_proj`` ...), so converted
@@ -24,12 +24,17 @@ class CLIPTextConfig:
     num_heads: int = 12
     max_length: int = 77
     intermediate_size: int = 3072
-    hidden_act: str = "quick_gelu"     # "quick_gelu" (CLIP-L) | "gelu"
+    hidden_act: str = "quick_gelu"     # "quick_gelu" (CLIP-L) | "gelu" (OpenCLIP-bigG)
     eos_token_id: int = 49407
-    projection_dim: Optional[int] = None
+    projection_dim: Optional[int] = None  # set for SDXL's second encoder
 
 
 SD15_TEXT = CLIPTextConfig()
+SDXL_TEXT_1 = CLIPTextConfig()          # CLIP-L; SDXL reads its penultimate states
+SDXL_TEXT_2 = CLIPTextConfig(
+    hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
+    hidden_act="gelu", projection_dim=1280,
+)
 TINY_TEXT = CLIPTextConfig(
     vocab_size=1000, hidden_size=32, num_layers=2, num_heads=2,
     max_length=16, intermediate_size=64, eos_token_id=999, projection_dim=32,
@@ -39,7 +44,7 @@ TINY_TEXT = CLIPTextConfig(
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "quick_gelu":
         return x * torch.sigmoid(1.702 * x)
-    return F.gelu(x)       # exact erf form
+    return F.gelu(x)       # exact erf form (transformers' "gelu", OpenCLIP-bigG)
 
 
 class _SelfAttention(nn.Module):

@@ -1,6 +1,5 @@
-"""Model bundles for SD-1.5, the 9-channel SD-1.5 inpainting UNet and their
-tiny test presets (port of ``models/model_zoo.py``; the SDXL families come
-in a later slice).
+"""Model bundles for SD-1.5, the 9-channel SD-1.5 inpainting UNet, SDXL and
+their tiny test presets (port of ``models/model_zoo.py``).
 
 :func:`build_model` builds the three networks on the target device with
 random weights made there from a ``torch.Generator``: fan-in-scaled normals
@@ -20,30 +19,61 @@ import torch
 import torch.nn as nn
 
 from tml_image_editing_defense_torch.core.schedule import NoiseSchedule, make_noise_schedule
-from tml_image_editing_defense_torch.models.clip_text import SD15_TEXT, TINY_TEXT, CLIPTextModel
+from tml_image_editing_defense_torch.models.clip_text import (
+    SD15_TEXT,
+    SDXL_TEXT_1,
+    SDXL_TEXT_2,
+    TINY_TEXT,
+    CLIPTextModel,
+)
 from tml_image_editing_defense_torch.models.tokenizer import HashTokenizer
 from tml_image_editing_defense_torch.models.unet import (
     SD15_INPAINT_UNET,
     SD15_UNET,
+    SDXL_UNET,
     TINY_INPAINT_UNET,
+    TINY_SDXL_REFINER_UNET,
+    TINY_SDXL_UNET,
     TINY_UNET,
     UNet2DCondition,
 )
-from tml_image_editing_defense_torch.models.vae import SD_VAE, TINY_VAE, AutoencoderKL, sample_latent
+from tml_image_editing_defense_torch.models.vae import (
+    SD_VAE,
+    SDXL_VAE,
+    TINY_VAE,
+    AutoencoderKL,
+    sample_latent,
+)
 from tml_image_editing_defense_torch.utils.device import resolve_device, set_numerics
 
 
 @dataclasses.dataclass
 class PromptBank:
-    """Stacked CFG-ready prompt embeddings: ``embeds`` [P, S, D], ``uncond`` [S, D]."""
+    """Stacked CFG-ready prompt embeddings: ``embeds`` [P, S, D], ``uncond``
+    [S, D]; ``pooled`` [P, Dp] and ``uncond_pooled`` [Dp] for SDXL, else None."""
 
     embeds: torch.Tensor
     uncond: torch.Tensor
+    pooled: Optional[torch.Tensor] = None
+    uncond_pooled: Optional[torch.Tensor] = None
     prompts: Optional[List[str]] = None
+
+
+def base_family(family: str) -> str:
+    """The family the JAX package keeps in ``DiffusionModel.family``
+    (model_zoo.py:331-336): "sdxl" for every SDXL family, "sd15" for the
+    SD-1.5 ones, "tiny" for the rest.  The training sampler follows it."""
+    if "sdxl" in family:
+        return "sdxl"
+    if family.startswith("sd15"):
+        return "sd15"
+    return "tiny"
 
 
 @dataclasses.dataclass
 class DiffusionModel:
+    #: the full family name ("sd15-inpaint", "tiny-sdxl", ...); the JAX
+    #: package's ``family`` is :attr:`base_family`
     family: str
     image_size: int
     unet: UNet2DCondition
@@ -65,8 +95,12 @@ class DiffusionModel:
     def vae_scaling(self) -> float:
         return self.vae.config.scaling_factor
 
-    def apply_unet(self, sample, t, ctx):
-        return self.unet(sample, t, ctx)
+    @property
+    def base_family(self) -> str:
+        return base_family(self.family)
+
+    def apply_unet(self, sample, t, ctx, text_embeds=None, time_ids=None):
+        return self.unet(sample, t, ctx, text_embeds, time_ids)
 
     def encode_image(self, image, eps: Optional[torch.Tensor] = None):
         """Scaled latent (main.py:191): the posterior draw with the caller's
@@ -88,19 +122,43 @@ class DiffusionModel:
     @torch.no_grad()
     def embed_prompt_bank(self, prompts: Sequence[str], negative_prompt: str = "") -> PromptBank:
         """Embed every prompt once (the reference re-encodes per iteration,
-        main.py:185); the last row of the batch is the negative prompt."""
+        main.py:185); the last row of the batch is the negative prompt.
+
+        One encoder (SD-1.5): its final states.  Two (SDXL,
+        model_zoo.py:126-138 of the JAX package): both encoders'
+        penultimate states side by side, and encoder 2's pooled output."""
         texts = list(prompts) + [negative_prompt]
-        ids = torch.as_tensor(self.tokenizers[0](texts), dtype=torch.long, device=self.device)
-        final, _, _ = self.text_models[0](ids)
-        return PromptBank(embeds=final[:-1], uncond=final[-1], prompts=list(prompts))
+        outs = [model(torch.as_tensor(tok(texts), dtype=torch.long, device=self.device))
+                for model, tok in zip(self.text_models, self.tokenizers)]
+        pooled = None
+        if len(outs) == 1:
+            embeds = outs[0][0]
+        else:
+            embeds = torch.cat([outs[0][1], outs[1][1]], dim=-1)
+            pooled = outs[1][2]
+        return PromptBank(embeds=embeds[:-1], uncond=embeds[-1],
+                          pooled=None if pooled is None else pooled[:-1],
+                          uncond_pooled=None if pooled is None else pooled[-1],
+                          prompts=list(prompts))
+
+    def encode_prompt(self, prompt: str, negative_prompt: str = ""):
+        """One prompt -> (cond, uncond, pooled, uncond_pooled), the last two
+        None without a pooled encoder (``Trainer._encode_prompt``,
+        main.py:334-360)."""
+        bank = self.embed_prompt_bank([prompt], negative_prompt)
+        pooled = None if bank.pooled is None else bank.pooled[0]
+        return bank.embeds[0], bank.uncond, pooled, bank.uncond_pooled
 
 
 _FAMILIES = {
-    # family: (unet_cfg, vae_cfg, text_cfg, native image size)
-    "sd15": (SD15_UNET, SD_VAE, SD15_TEXT, 512),
-    "sd15-inpaint": (SD15_INPAINT_UNET, SD_VAE, SD15_TEXT, 512),
-    "tiny": (TINY_UNET, TINY_VAE, TINY_TEXT, 32),
-    "tiny-inpaint": (TINY_INPAINT_UNET, TINY_VAE, TINY_TEXT, 32),
+    # family: (unet_cfg, vae_cfg, text_cfgs, native image size)
+    "sd15": (SD15_UNET, SD_VAE, (SD15_TEXT,), 512),
+    "sd15-inpaint": (SD15_INPAINT_UNET, SD_VAE, (SD15_TEXT,), 512),
+    "sdxl": (SDXL_UNET, SDXL_VAE, (SDXL_TEXT_1, SDXL_TEXT_2), 1024),
+    "tiny": (TINY_UNET, TINY_VAE, (TINY_TEXT,), 32),
+    "tiny-inpaint": (TINY_INPAINT_UNET, TINY_VAE, (TINY_TEXT,), 32),
+    "tiny-sdxl": (TINY_SDXL_UNET, TINY_VAE, (TINY_TEXT, TINY_TEXT), 32),
+    "tiny-sdxl-refiner": (TINY_SDXL_REFINER_UNET, TINY_VAE, (TINY_TEXT, TINY_TEXT), 32),
 }
 
 
@@ -137,17 +195,18 @@ def build_model(
     512 (api.immunize does).
     """
     if family not in _FAMILIES:
-        raise ValueError(f"family {family!r} is not ported yet; have {sorted(_FAMILIES)}")
+        raise ValueError(f"unknown family {family!r}; have {sorted(_FAMILIES)}")
     device = resolve_device(device)
     dtype = set_numerics(dtype)
-    unet_cfg, vae_cfg, text_cfg, native = _FAMILIES[family]
+    unet_cfg, vae_cfg, text_cfgs, native = _FAMILIES[family]
     image_size = image_size or native
     unet_cfg = dataclasses.replace(unet_cfg, attn_kv_chunk=attn_kv_chunk)
     vae_cfg = dataclasses.replace(vae_cfg, attn_kv_chunk=attn_kv_chunk)
 
     with torch.device("meta"):
-        unet, vae, text = UNet2DCondition(unet_cfg), AutoencoderKL(vae_cfg), CLIPTextModel(text_cfg)
-    nets = (unet, vae, text)
+        unet, vae = UNet2DCondition(unet_cfg), AutoencoderKL(vae_cfg)
+        texts = tuple(CLIPTextModel(c) for c in text_cfgs)
+    nets = (unet, vae, *texts)
     if device.type != "meta":
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -163,8 +222,9 @@ def build_model(
         image_size=image_size,
         unet=unet,
         vae=vae,
-        text_models=(text,),
-        tokenizers=(HashTokenizer(vocab_size=text_cfg.vocab_size, max_length=text_cfg.max_length),),
+        text_models=texts,
+        tokenizers=tuple(HashTokenizer(vocab_size=c.vocab_size, max_length=c.max_length)
+                         for c in text_cfgs),
         schedule=make_noise_schedule(),
         device=device,
         dtype=dtype,

@@ -1,6 +1,10 @@
-"""UNet2DCondition, the SD-1.5 denoiser (port of ``models/unet.py``), NCHW.
+"""UNet2DCondition, the SD-1.5 and SDXL denoiser (port of ``models/unet.py``),
+NCHW.
 
-The SDXL ``text_time`` additional embedding comes with the SDXL slice.
+SDXL's ``text_time`` additional embedding (reference main.py:362-408): the
+pooled text embeds, concatenated with the sinusoidal embedding of each
+micro-conditioning time id, go through ``add_embedding`` and are added to
+the time embedding.
 """
 
 from __future__ import annotations
@@ -40,6 +44,10 @@ class UNetConfig:
     num_attention_heads: Tuple[int, ...] = (8, 8, 8, 8)
     cross_attention_dim: int = 768
     use_linear_projection: bool = False
+    #: SDXL: "text_time" -- pooled text embeds + sinusoidal time ids.
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
     #: Long self-attention goes to the flash kernels when set (see
     #: layers.scaled_attention); training builds pass 512.
     attn_kv_chunk: Optional[int] = None
@@ -68,6 +76,42 @@ TINY_UNET = UNetConfig(
 
 TINY_INPAINT_UNET = dataclasses.replace(TINY_UNET, in_channels=9)
 
+SDXL_UNET = UNetConfig(
+    sample_size=128,
+    block_out_channels=(320, 640, 1280),
+    cross_attention_blocks=(False, True, True),
+    transformer_layers_per_block=(0, 2, 10),
+    num_attention_heads=(5, 10, 20),
+    cross_attention_dim=2048,
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=256,
+    projection_class_embeddings_input_dim=2816,
+)
+
+#: Tiny SDXL-shaped preset (text_time additional embedding): 6 time ids of
+#: width 8 and a pooled embed of width 32.
+TINY_SDXL_UNET = UNetConfig(
+    sample_size=8,
+    block_out_channels=(32, 64),
+    layers_per_block=1,
+    cross_attention_blocks=(False, True),
+    transformer_layers_per_block=(0, 2),
+    num_attention_heads=(2, 2),
+    cross_attention_dim=64,
+    use_linear_projection=True,
+    addition_embed_type="text_time",
+    addition_time_embed_dim=8,
+    projection_class_embeddings_input_dim=8 * 6 + 32,
+)
+
+#: Tiny refiner-shaped preset: a ``requires_aesthetics_score`` model takes
+#: the 5-tuple of time ids (original size, crop, aesthetic score;
+#: sdxl_img2img_pipeline.py:344-378), so its projection is one time-id
+#: embedding narrower.
+TINY_SDXL_REFINER_UNET = dataclasses.replace(TINY_SDXL_UNET,
+                                             projection_class_embeddings_input_dim=8 * 5 + 32)
+
 
 class UNet2DCondition(nn.Module):
     def __init__(self, config: UNetConfig):
@@ -77,6 +121,8 @@ class UNet2DCondition(nn.Module):
         n = len(boc)
         temb = cfg.time_embed_dim
         self.time_embedding = TimestepEmbedding(boc[0], temb)
+        self.add_embedding = (TimestepEmbedding(cfg.projection_class_embeddings_input_dim, temb)
+                              if cfg.addition_embed_type == "text_time" else None)
         self.conv_in = nn.Conv2d(cfg.in_channels, boc[0], 3, padding=1)
 
         def transformer(ch, level):
@@ -128,16 +174,28 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = nn.GroupNorm(groups, boc[0], eps=1e-5)
         self.conv_out = nn.Conv2d(boc[0], cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor):
+    def forward(self, sample: torch.Tensor, timesteps, encoder_hidden_states: torch.Tensor,
+                text_embeds: Optional[torch.Tensor] = None,
+                time_ids: Optional[torch.Tensor] = None):
         """``sample`` [B, C, h, w]; ``timesteps`` an int, a 0-d or a [B] tensor;
-        ``encoder_hidden_states`` [B, S, cross_dim]."""
+        ``encoder_hidden_states`` [B, S, cross_dim]; for a ``text_time``
+        model ``text_embeds`` [B, P] (pooled) and ``time_ids`` [B, 6], or
+        [B, 5] for a refiner."""
+        cfg = self.config
         b = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(b)
         dtype = self.conv_in.weight.dtype
-        emb = self.time_embedding(timestep_embedding(timesteps, self.config.block_out_channels[0])
+        emb = self.time_embedding(timestep_embedding(timesteps, cfg.block_out_channels[0])
                                   .to(dtype))
+        if self.add_embedding is not None:
+            if text_embeds is None or time_ids is None:
+                raise ValueError("an SDXL UNet needs text_embeds and time_ids "
+                                 "(reference main.py:362-408)")
+            tid = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim)
+            add = torch.cat([text_embeds.to(dtype), tid.reshape(b, -1).to(dtype)], dim=-1)
+            emb = emb + self.add_embedding(add)
         ctx = encoder_hidden_states.to(dtype)
         h = self.conv_in(sample.to(dtype))
 

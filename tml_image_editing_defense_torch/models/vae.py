@@ -25,13 +25,14 @@ class VAEConfig:
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
     layers_per_block: int = 2
     norm_groups: int = 32
-    #: latent scaling factor: 0.18215 for SD-1.5 (main.py:191)
+    #: latent scaling factor: 0.18215 for SD-1.5 (main.py:191), 0.13025 for SDXL
     scaling_factor: float = 0.18215
     #: long mid-block attention goes to the flash kernels when set
     attn_kv_chunk: Optional[int] = None
 
 
 SD_VAE = VAEConfig()
+SDXL_VAE = VAEConfig(scaling_factor=0.13025)
 TINY_VAE = VAEConfig(block_out_channels=(16, 32), layers_per_block=1, norm_groups=8)
 
 

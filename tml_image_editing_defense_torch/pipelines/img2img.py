@@ -24,7 +24,7 @@ from typing import List, Optional, Sequence
 import torch
 from PIL import Image
 
-from tml_image_editing_defense_torch.attack.forward import CondInputs, denoise_chain
+from tml_image_editing_defense_torch.attack.forward import CondInputs, denoise_chain, make_time_ids
 from tml_image_editing_defense_torch.core import image_ops
 from tml_image_editing_defense_torch.core.samplers import DenoisePlan, make_sampler
 from tml_image_editing_defense_torch.models.model_zoo import DiffusionModel
@@ -77,13 +77,28 @@ class Img2ImgPipeline:
         image = image.to(device=m.device, dtype=m.dtype)
         return image[None] if image.dim() == 3 else image
 
-    def cond(self, prompts: Sequence[str], negative_prompt: str, copies: int) -> CondInputs:
+    def cond(self, prompts: Sequence[str], negative_prompt: str, copies: int,
+             aesthetic_score: Optional[float] = None,
+             negative_aesthetic_score: Optional[float] = None) -> CondInputs:
         """CFG conditioning for ``copies`` images of each prompt in turn:
-        the unconditional rows of the whole batch, then the prompts' rows."""
-        bank = self.model.embed_prompt_bank(list(prompts), negative_prompt)
-        cond = bank.embeds.repeat_interleave(copies, dim=0)
-        uncond = bank.uncond.expand(cond.shape[0], *bank.uncond.shape)
-        return CondInputs(ctx=torch.cat([uncond, cond]).to(self.model.dtype))
+        the unconditional rows of the whole batch, then the prompts' rows.
+        An SDXL model also takes the pooled embeds and the time ids at its
+        image size, the refiner's 5-tuple when ``aesthetic_score`` is set
+        (JAX ``_prepare_cond``, pipelines/img2img.py:113-125)."""
+        m = self.model
+        bank = m.embed_prompt_bank(list(prompts), negative_prompt)
+
+        def cfg_rows(uncond, cond):
+            cond = cond.repeat_interleave(copies, dim=0)
+            return torch.cat([uncond.expand(cond.shape[0], *uncond.shape), cond]).to(m.dtype)
+
+        out = CondInputs(ctx=cfg_rows(bank.uncond, bank.embeds))
+        if bank.pooled is not None:
+            n = len(prompts) * copies
+            out.text_embeds = cfg_rows(bank.uncond_pooled, bank.pooled)
+            out.time_ids = make_time_ids(m.image_size, m.dtype, m.device, aesthetic_score,
+                                         negative_aesthetic_score).repeat_interleave(n, dim=0)
+        return out
 
     # -- device side -------------------------------------------------------
 
@@ -119,6 +134,8 @@ class Img2ImgPipeline:
         latents: Optional[torch.Tensor] = None,
         denoising_start: Optional[float] = None,
         denoising_end: Optional[float] = None,
+        aesthetic_score: Optional[float] = None,
+        negative_aesthetic_score: Optional[float] = None,
     ):
         """Edit ``image`` (one, a list, or a batch) with ``prompt``.
 
@@ -128,7 +145,8 @@ class Img2ImgPipeline:
         that takes them; each one the edit needs must be passed.
         ``latents`` with ``denoising_start`` continue a partly
         denoised latent (SDXL's base-to-refiner handoff); ``denoising_end``
-        stops early.  Returns PIL images (one, or a list for a batch), or
+        stops early; ``aesthetic_score`` gives a refiner its 5-tuple of
+        time ids.  Returns PIL images (one, or a list for a batch), or
         with ``output_type="pt"`` a [B, 3, H, W] tensor in [0, 1]."""
         m = self.model
         plan = self.plan(num_inference_steps, strength, denoising_start, denoising_end)
@@ -145,8 +163,8 @@ class Img2ImgPipeline:
             vae_eps = _require(vae_eps, "vae_eps")
         if self.sampler.uses_step_noise:
             _require(step_noise, "step_noise")
-        out = self.generate(plan, img, self.cond([prompt], negative_prompt, b), noise, vae_eps,
-                            step_noise, guidance_scale, latents)
+        cond = self.cond([prompt], negative_prompt, b, aesthetic_score, negative_aesthetic_score)
+        out = self.generate(plan, img, cond, noise, vae_eps, step_noise, guidance_scale, latents)
         if output_type != "pil":
             return out
         pils = _to_pils(out)
@@ -165,6 +183,8 @@ class Img2ImgPipeline:
         strength: float = 0.6,
         negative_prompt: str = "",
         denoising_end: Optional[float] = None,
+        aesthetic_score: Optional[float] = None,
+        negative_aesthetic_score: Optional[float] = None,
     ) -> torch.Tensor:
         """Batched (clean, adv) double edits: the P cells' 2P images go
         through one chain as one batch.  Each cell keeps its prompt and its
@@ -177,8 +197,9 @@ class Img2ImgPipeline:
         if step_noise is not None:
             step_noise = step_noise.transpose(0, 1).reshape(plan.num_steps, 2 * p,
                                                             *step_noise.shape[3:])
-        out = self.generate(plan, flat(pair_images), self.cond(prompts, negative_prompt, 2),
-                            flat(pair_noises), flat(vae_eps), step_noise, guidance_scale)
+        cond = self.cond(prompts, negative_prompt, 2, aesthetic_score, negative_aesthetic_score)
+        out = self.generate(plan, flat(pair_images), cond, flat(pair_noises), flat(vae_eps),
+                            step_noise, guidance_scale)
         return out.reshape(p, 2, *out.shape[1:])
 
 
