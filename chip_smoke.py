@@ -16,8 +16,9 @@ Phases, each fatal on failure:
    at [2, 4096, 8, 40] (UNet 64x64 level) and [1, 4096, 1, 512] (VAE
    mid-block) in f32 and bf16, at [8, 4096, 1, 512] (the encoder
    attack's batched VAE mid-block) in f32, at the evaluation's
-   [8, 4096, 8, 40] and [4, 4096, 1, 512] and at the SDXL evaluation's
-   [4, 4096, 10, 64] and [2, 16384, 1, 512] in f32; K1-K3 at ragged T (70..1000)
+   [8, 4096, 8, 40] and [4, 4096, 1, 512], at the SDXL evaluation's
+   [4, 4096, 10, 64] and [2, 16384, 1, 512] and at the SDXL universal
+   attack's [2, 4096, 10, 64] and [1, 16384, 1, 512] in f32; K1-K3 at ragged T (70..1000)
    at every compiled head dim (40, 64, 80, 512: every tile plan of K2/K3)
    in f32 and bf16, and K1-K3's refusal of a misaligned tensor; the L2 PGD
    update K4 at [1, 3, 512, 512] with and without a 0/1 mask, at
@@ -91,11 +92,27 @@ Phases, each fatal on failure:
    1024x1024 source and an adversarial PNG made from it with a seeded
    perturbation inside the L2 ball; K1 at [4, 4096, 10, 64] (UNet) and
    [2, 16384, 1, 512] (VAE), held and timed at both shapes in phase 3;
+12. the universal attack: ``universal_attack.main([...])`` at its defaults
+   (SD-1.5 at 512x512, f32, the TAESD preview at full width, 4 reps, eps
+   0.1, step 0.006, remat "none") over 3 synthetic images for 5 steps in 2
+   epochs, a validation collage every 2 steps; the losses finite, every
+   step's perturbation in the eps box with its image in [-1, 1] and moved by
+   at most step_size in L2 from the previous one re-anchored to that image,
+   the artifacts written (``perturbation.npy`` NHWC), K1-K3 launched as the
+   code implies; then one step on the same draws through the kernels and
+   through plain attention, with the TAESD decode and with the full VAE
+   decode (the updates within a relative 1e-2 and 1e-3 in L2, the losses
+   within 1e-4; :func:`universal_gate` says why two bounds), one step under
+   ``torch.profiler``, and the TAESD decode's forward and backward timed
+   against the full VAE decode's;
+13. the universal attack on SDXL at its native 1024x1024 with remat
+   "full" for 2 steps, with the same checks (every forward runs twice, so
+   K1 launches twice per attention), then one step under ``torch.profiler``;
    after each path, once its objects are dropped, at most HELD_LIMIT_GB may
    stay allocated on the card (a model left alive is 4.3 GB for SD-1.5 and
    13.9 GB for SDXL), and each path's peak is counted above what was
    allocated when it began;
-12. a JSON line naming every kernel with its launches on every path, error
+14. a JSON line naming every kernel with its launches on every path, error
    and times, then the card's name and power limit, then the result line.
 
 ``--report PATH`` also writes the full report there as JSON.
@@ -138,6 +155,15 @@ EVAL_PROMPTS = 2        # the first two of INFERENCE_PROMPTS
 #: mid-block (128x128 tokens, the 2 images)
 SDXL_EVAL_SIZE = 1024
 SDXL_EVAL_UNET_SHAPE, SDXL_EVAL_VAE_SHAPE = (4, 4096, 10, 64), (2, 16384, 1, 512)
+#: the universal attack (universal_attack.main at its defaults: 4 reps, eps
+#: 0.1, step 0.006, the TAESD preview): SD-1.5 at 512x512 for UNIVERSAL_STEPS
+#: steps over UNIVERSAL_IMAGES images with a validation every
+#: UNIVERSAL_VIS_EVERY steps (K1-K3 at UNET_SHAPE and VAE_SHAPE); then SDXL
+#: at its native 1024x1024 with remat "full" for UNIVERSAL_SDXL_STEPS steps,
+#: where K1-K3 run the UNet's 64x64 level (the CFG pair, 10 heads of 64) and
+#: the VAE encoder's mid-block (128x128 tokens)
+UNIVERSAL_STEPS, UNIVERSAL_VIS_EVERY, UNIVERSAL_IMAGES, UNIVERSAL_SDXL_STEPS = 5, 2, 3, 2
+UX_UNET_SHAPE, UX_VAE_SHAPE = (2, 4096, 10, 64), (1, 16384, 1, 512)
 LINF = dict(step_size=0.006, eps=0.1, min_value=-1.0, max_value=1.0)
 L2 = dict(step_size=7.5, eps=32.0, min_value=-1.0, max_value=1.0)     # the TrainConfig defaults
 #: a write this large between two timed calls leaves none of their operands
@@ -1174,6 +1200,205 @@ def sdxl_evaluate_path(cli, kernels, images: dict, tmp: Path) -> dict:
             "launches": launches, "expected_launches": expected, "k1_launches_at_shape": at_shape}
 
 
+def universal_launches(unet_cfg, size: int, reps: int, steps: int, validations: int,
+                       remat: str) -> dict:
+    """K1-K3 launches of a universal run, by shape: each rep runs one VAE
+    encoder mid-block and ``unet_long_attentions`` UNet self-attentions,
+    forward and backward (the TAESD decode has no attention); under a remat
+    policy every forward runs again in the backward.  A validation edit
+    runs the encode, the UNet and the full VAE decode, forward only."""
+    unet_n, fwd = unet_long_attentions(unet_cfg, size), 1 if remat == "none" else 2
+    unet = {"tid_flash_fwd": fwd * steps * reps * unet_n + validations * unet_n,
+            "tid_flash_bwd_kv": steps * reps * unet_n, "tid_flash_bwd_q": steps * reps * unet_n}
+    vae = {"tid_flash_fwd": fwd * steps * reps + 2 * validations,
+           "tid_flash_bwd_kv": steps * reps, "tid_flash_bwd_q": steps * reps}
+    return {"unet": unet, "vae": vae}
+
+
+def universal_path(ua, universal, kernels, dataset: Path, out: Path, args: list,
+                   unet_cfg) -> dict:
+    """``universal_attack.main`` on the card (``--dataset-dir dataset
+    --output out`` and ``args``), with every count set to 0 just before and
+    read just after; the launches must be those of
+    :func:`universal_launches`.  Each step is recorded as it runs (a
+    wrapper of ``make_universal_step``): its seconds, and its perturbation
+    against the box, the step image's range and the step's size -- the
+    update moves the previous perturbation, re-anchored to the step's image,
+    by at most ``step_size`` (the projections are non-expansive)."""
+    import numpy as np
+    import torch
+
+    records, real = [], universal.make_universal_step
+
+    def recording(model, cfg, bank, preview=None):
+        step = real(model, cfg, bank, preview)
+
+        def timed(pert, source, draws):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, loss = step(pert, source, draws)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            anchored = (source + pert.clamp(-cfg.eps, cfg.eps)).clamp(-1.0, 1.0) - source
+            records.append({"s": seconds, "loss": loss.item(),
+                            "move_l2": torch.linalg.vector_norm(new - anchored).item(),
+                            "pert_max": new.abs().max().item(),
+                            "perturbed_max": (source + new).abs().max().item()})
+            return new, loss
+
+        return timed
+
+    argv = ["--dataset-dir", str(dataset), "--output", str(out), *args]
+    for kern in kernels:
+        kern.launches = 0
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    universal.make_universal_step = recording
+    try:
+        t0 = time.perf_counter()
+        run = ua.main(argv)                 # on the card: the entry point's default device
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        universal.make_universal_step = real
+    launches = {kern.symbol: kern.launches for kern in kernels}
+    cfg, steps = run.cfg, len(run.losses)
+    vis_every = int(args[args.index("--vis-every") + 1]) if "--vis-every" in args else None
+    validations = len(range(0, steps, vis_every)) if vis_every else 0
+    size = run.images[0].shape[-1]
+    at_shape = universal_launches(unet_cfg, size, cfg.grad_reps, steps, validations,
+                                  cfg.remat_policy)
+    expected = {kern.symbol: 0 for kern in kernels}
+    for part in at_shape.values():
+        for sym, n in part.items():
+            expected[sym] += n
+    require(launches == expected, ("universal", launches, expected))
+    require(steps == cfg.max_steps == len(records), (steps, len(records)))
+    require(all(math.isfinite(v) for v in run.losses), f"universal losses {run.losses}")
+    require([r["loss"] for r in records] == run.losses, "the recorded steps are not the run's")
+    for i, r in enumerate(records):
+        require(r["pert_max"] <= cfg.eps + 1e-6, f"step {i}: |pert|_inf {r['pert_max']} over eps")
+        require(r["perturbed_max"] <= 1.0 + 1e-6, f"step {i}: source + pert left [-1, 1]")
+        require(r["move_l2"] <= cfg.step_size * (1 + 1e-4),
+                f"step {i} moved pert by {r['move_l2']} (step_size {cfg.step_size})")
+    pert = run.pert
+    require(pert.abs().max().item() <= cfg.eps + 1e-6, "the final perturbation left the box")
+    saved = np.load(out / "perturbation.npy")
+    require(saved.shape == (1, size, size, 3) and saved.dtype == np.float32, saved.shape)
+    require(np.array_equal(saved, pert.detach().cpu().permute(0, 2, 3, 1).numpy()),
+            "perturbation.npy is not the run's perturbation in NHWC")
+    names = ["perturbation.npy", "perturbed_example.png"]
+    if vis_every:
+        names += [f"validation_{k:05d}.png" for k in range(0, steps, vis_every)]
+    require(sorted(p.name for p in out.iterdir()) == sorted(names), sorted(out.iterdir()))
+    over = [(im + pert).abs().max().item() - 1.0 for im in run.images]
+    return {"wall_s": wall, "s_per_step": [r["s"] for r in records],
+            "s_per_step_after_first": sum(r["s"] for r in records[1:]) / max(1, steps - 1),
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+            "allocated_before_gb": before / 1e9, "losses": run.losses,
+            "move_l2": [r["move_l2"] for r in records], "step_size": cfg.step_size,
+            "pert_max": pert.abs().max().item(), "others_over_range": over,
+            "remat_policy": cfg.remat_policy, "image_size": size, "validations": validations,
+            "launches": launches, "expected_launches": expected, "launches_at_shape": at_shape,
+            "artifacts": names, "_run": run}
+
+
+def universal_step_inputs(universal, run, seed: int = 9):
+    """One step of ``run``'s configuration on fresh draws: the step, the
+    first dataset image, the final perturbation re-anchored to it (so that
+    the update is the step's alone) and the draws."""
+    import torch
+
+    model, cfg = run.model, run.cfg
+    prompts = [(cfg.default_prompt + " " + e).strip() for e in cfg.edit_prompts]
+    bank = model.embed_prompt_bank(prompts)
+    step = universal.make_universal_step(model, cfg, bank, preview=run.preview)
+    src = run.images[0]
+    pert = (src + run.pert.clamp(-cfg.eps, cfg.eps)).clamp(-1.0, 1.0) - src
+    f = 2 ** (len(model.vae.config.block_out_channels) - 1)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    draws = universal.sample_universal_draws(
+        gen, cfg.grad_reps, len(prompts),
+        (model.vae.config.latent_channels, src.shape[-2] // f, src.shape[-1] // f),
+        cfg.timestep_range, model.dtype)
+    return step, src, pert, draws
+
+
+def universal_gate(universal, run, layers) -> dict:
+    """One universal step of ``run``'s configuration on the same draws
+    through the kernels and through plain attention (the flash floor raised
+    out of reach), twice: with the TAESD preview decode, as the entry point
+    runs it, and with the full VAE decode.  Both run the same K1-K3
+    attentions (encode and UNet; the full decode adds its mid-block).  The
+    normalized step moves each element by about step_size / sqrt(3 H W)
+    (7e-6 at 512x512), so the gate holds the updates, not the
+    perturbations: the L2 norm of the difference of the two updates over
+    the plain update's, and the losses within a relative 1e-4.
+
+    The update through the preview is far more sensitive to f32 rounding
+    than through the full decode (the TAESD decoder's ReLUs flip on tiny
+    changes of their input), so each case also records its floor: the plain
+    step with the UNet's epsilon moved by a relative 1e-6.  The full-decode
+    update must agree within 1e-3, the preview's within 1e-2 (its floor
+    measured about 1e-3 on an H100; see PERF.md)."""
+    import dataclasses
+
+    import torch
+
+    def rel(a, b) -> float:
+        return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+    model, out = run.model, {}
+    real_unet = model.apply_unet
+    for name, case, tol in (("taesd", run, 1e-2),
+                            ("full_vae", dataclasses.replace(run, preview=None), 1e-3)):
+        step, src, pert, draws = universal_step_inputs(universal, case)
+        new_k, loss_k = step(pert, src, draws)
+        floor = layers.MIN_CHUNKED_SEQ
+        layers.MIN_CHUNKED_SEQ = 1 << 30        # every attention on the plain path
+        gen = torch.Generator(device=model.device).manual_seed(5)
+
+        def noisy_unet(*args, **kw):
+            eps = real_unet(*args, **kw)
+            return eps * (1 + 1e-6 * torch.randn(eps.shape, generator=gen, device=eps.device))
+
+        try:
+            new_p, loss_p = step(pert, src, draws)
+            model.apply_unet = noisy_unet
+            new_n, _ = step(pert, src, draws)
+        finally:
+            layers.MIN_CHUNKED_SEQ = floor
+            model.__dict__.pop("apply_unet", None)
+        r = out[name] = {"update_rel_diff": rel(new_k - pert, new_p - pert),
+                         "floor_1e-6_rel_diff": rel(new_n - pert, new_p - pert),
+                         "update_l2": torch.linalg.vector_norm(new_p - pert).item(),
+                         "avg_loss_rel_diff": abs(loss_k.item() - loss_p.item()) / abs(loss_p.item()),
+                         "update_tol": tol}
+        require(r["update_rel_diff"] <= tol and r["avg_loss_rel_diff"] <= 1e-4,
+                f"one universal step ({name} decode) through the kernels vs plain attention: {r}")
+    return out
+
+
+def decoder_costs(run) -> dict:
+    """Device ms of one decode forward and backward at the universal rep's
+    latent (CUDA events): the TAESD preview's, which every rep runs, and the
+    full VAE decode's, which it replaces."""
+    import torch
+
+    model = run.model
+    z = torch.randn((1, *model.latent_shape[1:]), device=model.device, requires_grad=True)
+
+    def fwd_bwd(decode):
+        def call():
+            out = decode(z)
+            torch.autograd.grad(out, [z], torch.ones_like(out))
+        return call
+
+    return {"taesd_ms": cuda_ms(fwd_bwd(run.preview.decode), 5),
+            "full_vae_ms": cuda_ms(fwd_bwd(lambda zz: model.decode_latent(zz, scaled=True)), 3),
+            "latent_shape": list(z.shape)}
+
+
 def load_batch(paths, size):
     import numpy as np
     import torch
@@ -1221,6 +1446,8 @@ def main(argv) -> int:
     from PIL import Image
 
     from tml_image_editing_defense_torch import api, cli
+    from tml_image_editing_defense_torch import universal_attack as ua
+    from tml_image_editing_defense_torch.attack import universal
     from tml_image_editing_defense_torch.configs import TrainConfig
     from tml_image_editing_defense_torch.core.samplers import LCMSampler
     from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
@@ -1253,7 +1480,8 @@ def main(argv) -> int:
                           (ENC_ATTN_SHAPE, (torch.float32,)),
                           (EVAL_UNET_SHAPE, (torch.float32,)), (EVAL_VAE_SHAPE, (torch.float32,)),
                           (SDXL_EVAL_UNET_SHAPE, (torch.float32,)),
-                          (SDXL_EVAL_VAE_SHAPE, (torch.float32,))):
+                          (SDXL_EVAL_VAE_SHAPE, (torch.float32,)),
+                          (UX_UNET_SHAPE, (torch.float32,)), (UX_VAE_SHAPE, (torch.float32,))):
         for dtype in dtypes:
             r = check_flash(fa, shape, dtype, gen, times=True)
             flash[f"{shape}-{r['dtype']}"] = r
@@ -1462,6 +1690,77 @@ def main(argv) -> int:
               f"(K1 {xev['k1_launches_at_shape']}); adversarial PNG at L2 "
               f"{xev['adversarial_l2']:.2f}", flush=True)
         free_card(held, "sdxl-evaluate")
+
+        # ---- the universal attack, SD-1.5 at 512x512 -------------------------
+        # universal_attack.main at its defaults (TAESD preview, 4 reps, eps
+        # 0.1, step 0.006, remat "none") over UNIVERSAL_IMAGES images; per
+        # rep K1-K3 run the VAE encoder's mid-block and the UNet's 5 long
+        # self-attentions, forward and backward; a validation adds an
+        # encode, a UNet call and a full decode, forward only
+        u_data = tmp / "universal_images"
+        u_data.mkdir()
+        for i in range(UNIVERSAL_IMAGES):
+            synthetic_image(u_data / f"u{i}.png", 200 + i)
+        uni = universal_path(
+            ua, universal, kernels, u_data, tmp / "out_universal",
+            ["--family", "sd15", "--steps", str(UNIVERSAL_STEPS), "--epochs", "2",
+             "--vis-every", str(UNIVERSAL_VIS_EVERY)], SD15_UNET)
+        run = uni.pop("_run")
+        report["universal_path"] = uni
+        print(f"[universal] universal_attack sd15 512x512 f32, TAESD preview, {UNIVERSAL_STEPS} "
+              f"steps x {run.cfg.grad_reps} reps over {UNIVERSAL_IMAGES} images, "
+              f"{uni['validations']} validations: {uni['wall_s']:.1f} s in all (model build "
+              f"included), {uni['s_per_step_after_first']:.3f} s/step after the first (steps "
+              + ", ".join(f"{v:.3f}" for v in uni["s_per_step"]) + f"), peak "
+              f"{uni['max_memory_allocated_gb']:.2f} GB; losses "
+              f"{[round(v, 4) for v in uni['losses']]}; step moves (L2) "
+              + ", ".join(f"{v:.5f}" for v in uni["move_l2"]) + f" <= {run.cfg.step_size}; "
+              f"|pert|_inf {uni['pert_max']:.4f} <= {run.cfg.eps}; launches {uni['launches']} "
+              f"({uni['launches_at_shape']})", flush=True)
+        gate = report["universal_vs_plain"] = universal_gate(universal, run, layers)
+        print(f"[model] one SD-1.5 512x512 universal step, kernels vs plain attention, same draws "
+              f"(TAESD decode, then the full VAE decode): {gate}", flush=True)
+        inputs = universal_step_inputs(universal, run)
+        inputs[0](*inputs[1:])                  # warm-up of the profiled step
+        report["universal_profile"] = prof = profile_call(lambda: inputs[0](*inputs[1:]))
+        print_profile("universal step", prof)
+        dec = report["universal_decoders"] = decoder_costs(run)
+        reps = run.cfg.grad_reps
+        print(f"[universal] decode forward + backward at {dec['latent_shape']}: TAESD "
+              f"{dec['taesd_ms']:.2f} ms, full VAE {dec['full_vae_ms']:.2f} ms; {reps} TAESD "
+              f"decodes are {reps * dec['taesd_ms'] / prof['device_ms']:.1%} of the step's device "
+              f"time, {reps} full decodes would add "
+              f"{reps * (dec['full_vae_ms'] - dec['taesd_ms']):.0f} ms to it", flush=True)
+        del run, inputs
+        free_card(held, "universal")
+
+        # ---- the universal attack, SDXL at 1024x1024 with remat "full" -------
+        # per rep K1-K3 run the VAE encoder's mid-block ([1, 16384, 1, 512])
+        # and the UNet's 10 long self-attentions ([2, 4096, 10, 64]); every
+        # forward runs twice (the checkpoint's recompute)
+        uxr = universal_path(
+            ua, universal, kernels, u_data, tmp / "out_universal_sdxl",
+            ["--family", "sdxl", "--steps", str(UNIVERSAL_SDXL_STEPS), "--remat-policy", "full"],
+            SDXL_UNET)
+        run = uxr.pop("_run")
+        report["universal_sdxl_path"] = uxr
+        print(f"[universal-sdxl] universal_attack sdxl {uxr['image_size']}x{uxr['image_size']} "
+              f"f32, remat full, TAESD preview, {UNIVERSAL_SDXL_STEPS} steps x "
+              f"{run.cfg.grad_reps} reps: {uxr['wall_s']:.1f} s in all (model build included), "
+              f"{uxr['s_per_step_after_first']:.2f} s/step after the first (steps "
+              + ", ".join(f"{v:.2f}" for v in uxr["s_per_step"]) + f"), peak "
+              f"{uxr['max_memory_allocated_gb']:.2f} GB above the "
+              f"{uxr['allocated_before_gb']:.2f} GB allocated before; losses "
+              f"{[round(v, 4) for v in uxr['losses']]}; step moves (L2) "
+              + ", ".join(f"{v:.5f}" for v in uxr["move_l2"]) + f"; |pert|_inf "
+              f"{uxr['pert_max']:.4f}; launches {uxr['launches']} ({uxr['launches_at_shape']})",
+              flush=True)
+        # the path ran these shapes just before: no warm-up
+        inputs = universal_step_inputs(universal, run)
+        report["universal_sdxl_profile"] = profile_call(lambda: inputs[0](*inputs[1:]))
+        print_profile("SDXL 1024x1024 universal step (remat full)", report["universal_sdxl_profile"])
+        del run, inputs
+        free_card(held, "universal-sdxl")
         print("[memory] GB allocated on the card after each path: "
               + ", ".join(f"{k} {v:.3f}" for k, v in held.items())
               + f" (limit {HELD_LIMIT_GB})", flush=True)
@@ -1500,19 +1799,26 @@ def kernel_rows(flash, updates, report) -> list:
                 "resume": report["resume"]["launches"],
                 "evaluate": report["evaluate_path"]["launches"],
                 "sdxl": report["sdxl_path"]["launches"],
-                "sdxl-evaluate": report["sdxl_evaluate_path"]["launches"]}
+                "sdxl-evaluate": report["sdxl_evaluate_path"]["launches"],
+                "universal": report["universal_path"]["launches"],
+                "universal-sdxl": report["universal_sdxl_path"]["launches"]}
     by_path = lambda sym: {path: counts[sym] for path, counts in launches.items()}  # noqa: E731
     at_shape = {(path, shape): report[f"{path.replace('-', '_')}_path"]["k1_launches_at_shape"][part]
                 for path, (unet, vae) in (("evaluate", (EVAL_UNET_SHAPE, EVAL_VAE_SHAPE)),
                                           ("sdxl-evaluate", (SDXL_EVAL_UNET_SHAPE,
                                                              SDXL_EVAL_VAE_SHAPE)))
                 for part, shape in (("unet", unet), ("vae", vae))}
+    # the universal paths run forward and backward: launches at each shape by kernel
+    by_shape = {(path, shape): report[f"{path.replace('-', '_')}_path"]["launches_at_shape"][part]
+                for path, (unet, vae) in (("universal", (UNET_SHAPE, VAE_SHAPE)),
+                                          ("universal-sdxl", (UX_UNET_SHAPE, UX_VAE_SHAPE)))
+                for part, shape in (("unet", unet), ("vae", vae))}
     rows = []
     for path, shape in (("diffusion", UNET_SHAPE), ("inpaint", UNET_SHAPE),
                         ("encoder", ENC_ATTN_SHAPE), ("evaluate", EVAL_UNET_SHAPE),
                         ("evaluate", EVAL_VAE_SHAPE), ("sdxl", VAE_SHAPE),
                         ("sdxl-evaluate", SDXL_EVAL_UNET_SHAPE),
-                        ("sdxl-evaluate", SDXL_EVAL_VAE_SHAPE)):
+                        ("sdxl-evaluate", SDXL_EVAL_VAE_SHAPE), *by_shape):
         r = flash[f"{shape}-float32"]
         for name, sym, key, line in (("flash_fwd", "tid_flash_fwd", "fwd", 69),
                                      ("flash_bwd_kv", "tid_flash_bwd_kv", "bwd_kv", 148),
@@ -1534,6 +1840,8 @@ def kernel_rows(flash, updates, report) -> list:
             }
             if (path, shape) in at_shape:
                 row["launches_at_shape"] = at_shape[(path, shape)]
+            if (path, shape) in by_shape:
+                row["launches_at_shape"] = by_shape[(path, shape)][sym]
             rows.append(row)
     update_rows = [("pgd_l2_update", path, "tid_pgd_l2_update", 118, updates["l2"]["f32"])
                    for path in ("diffusion", "sdxl")]

@@ -3,14 +3,23 @@
 Noise-add, then K CFG UNet steps as a Python loop over the plan (reference
 ``Trainer.attack_forward``, main.py:194-245).  Every random draw -- the
 pool noise and the per-step LCM noise -- is an argument.
+
+:func:`apply_remat` wraps a stage in activation checkpointing by the JAX
+package's policy names (``_REMAT_POLICIES``, forward.py:72-98 there).
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from tml_image_editing_defense_torch.core.samplers import BaseSampler, DenoisePlan
 from tml_image_editing_defense_torch.models.model_zoo import DiffusionModel
@@ -47,11 +56,18 @@ def select_cond(bank_embeds: torch.Tensor, bank_uncond: torch.Tensor, prompt_idx
                 bank_uncond_pooled: Optional[torch.Tensor] = None,
                 time_ids: Optional[torch.Tensor] = None) -> CondInputs:
     """Prompt row ``prompt_idx`` of the bank, stacked under the unconditional
-    row; the pooled rows likewise where the bank has them."""
+    row; the pooled rows likewise where the bank has them.  A tensor index
+    is gathered on its device (indexing with a 0-d tensor reads it on the
+    host)."""
+    def row(bank):
+        if isinstance(prompt_idx, torch.Tensor):
+            return bank.index_select(0, prompt_idx.reshape(1))[0]
+        return bank[prompt_idx]
+
     te = None
     if bank_pooled is not None:
-        te = torch.stack([bank_uncond_pooled, bank_pooled[prompt_idx]])
-    return CondInputs(ctx=torch.stack([bank_uncond, bank_embeds[prompt_idx]]), text_embeds=te,
+        te = torch.stack([bank_uncond_pooled, row(bank_pooled)])
+    return CondInputs(ctx=torch.stack([bank_uncond, row(bank_embeds)]), text_embeds=te,
                       time_ids=time_ids)
 
 
@@ -102,3 +118,51 @@ def attack_forward_from_latent(
     x = sampler.add_noise(plan, z_scaled, init_noise)
     x = denoise_chain(model, sampler, plan, x, cond, guidance_scale, step_noise)
     return x / model.vae_scaling
+
+
+def _checkpointed(body: Callable, saved_ops=None) -> Callable:
+    """``body`` under ``torch.utils.checkpoint``: every activation is
+    recomputed in the backward, except the outputs of ``saved_ops`` (aten
+    overloads) where they are given (selective checkpointing)."""
+    context_fn = None
+    if saved_ops is not None:
+        def policy(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE if op in saved_ops
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        context_fn = functools.partial(create_selective_checkpoint_contexts, policy)
+
+    def run(*args):
+        if context_fn is None:
+            return checkpoint(body, *args, use_reentrant=False)
+        return checkpoint(body, *args, use_reentrant=False, context_fn=context_fn)
+
+    return run
+
+
+#: the unbatched matrix products: the counterpart of JAX's
+#: ``checkpoint_dots_with_no_batch_dims`` (linear layers; not the batched
+#: attention products)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+_REMAT_POLICIES = {
+    # recompute everything inside the body (lowest memory)
+    "full": lambda body: _checkpointed(body),
+    # save the unbatched matmul outputs (time embedding, projections)
+    "dots": lambda body: _checkpointed(body, _DOTS),
+    # save the convolution outputs too: the conv-dominated models recompute far less
+    "conv_dots": lambda body: _checkpointed(body, _DOTS | {torch.ops.aten.convolution.default}),
+    # no checkpoint: autograd keeps whatever it needs (highest memory)
+    "none": lambda body: body,
+}
+
+
+def apply_remat(body: Callable, remat_policy: str) -> Callable:
+    """Wrap ``body`` (tensors in, tensor out) by ``remat_policy``: "none",
+    "full", "dots" or "conv_dots"."""
+    try:
+        return _REMAT_POLICIES[remat_policy](body)
+    except KeyError:
+        raise ValueError(
+            f"unknown remat_policy {remat_policy!r}; have {sorted(_REMAT_POLICIES)}"
+        ) from None

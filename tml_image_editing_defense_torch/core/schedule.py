@@ -1,13 +1,16 @@
 """Diffusion noise schedule (port of ``core/schedule.py``).
 
-The cumulative-alpha table stays a host numpy array: every timestep on the
-attack's path is a host integer, so each lookup is a scalar, computed in
-f32 as the JAX program does, and the tensors only see python floats.
+The cumulative-alpha table stays a host numpy array: a host-integer
+timestep (every one of the PGD attack's) looks up a scalar, computed in f32
+as the JAX program does, so the tensors only see python floats.  A tensor
+timestep (the universal attack draws one per rep on the device) indexes a
+copy of the table kept on its device, so the lookup does not wait on it.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Union
 
 import numpy as np
 import torch
@@ -22,9 +25,25 @@ class NoiseSchedule:
     final_alpha_cumprod: np.float32
     num_train_timesteps: int = 1000
     prediction_type: str = "epsilon"
+    #: device copies of ``alphas_cumprod``, by device
+    _tables: dict = field(default_factory=dict, compare=False, repr=False)
 
-    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor, t: int) -> torch.Tensor:
-        """q(x_t | x_0) = sqrt(abar_t) x0 + sqrt(1 - abar_t) eps (main.py:216)."""
+    def alphas_cumprod_on(self, device) -> torch.Tensor:
+        """``alphas_cumprod`` as an f32 tensor on ``device``, copied once."""
+        device = torch.device(device)
+        if device not in self._tables:
+            self._tables[device] = torch.from_numpy(self.alphas_cumprod).to(device)
+        return self._tables[device]
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  t: Union[int, torch.Tensor]) -> torch.Tensor:
+        """q(x_t | x_0) = sqrt(abar_t) x0 + sqrt(1 - abar_t) eps (main.py:216).
+        ``t`` is a host int, or a tensor: a scalar or one timestep per sample."""
+        if isinstance(t, torch.Tensor):
+            abar = torch.take(self.alphas_cumprod_on(sample.device), t).to(sample.dtype)
+            while abar.dim() < sample.dim():
+                abar = abar[..., None]
+            return torch.sqrt(abar) * sample + torch.sqrt(1.0 - abar) * noise
         abar = np.float32(self.alphas_cumprod[int(t)])
         a = float(np.sqrt(abar))
         b = float(np.sqrt(np.float32(1.0) - abar))
