@@ -66,7 +66,22 @@ Phases, each fatal on failure:
    with K1, and on the same model with plain attention (the flash path's
    length floor raised out of reach), a 10-step PLMS plan at strength 0.6,
    the same draws: the images in [0, 1] finite and within 1e-3;
-9. evaluate: ``cli.main(["evaluate", ...])`` on the diffusion path's
+9. the masked path (m): a random RMBG-1.4 ISNet at its published widths
+   built on the card from a seed, written to ``model.safetensors`` by this
+   script's own writer, loaded back by ``load_rmbg_checkpoint``; its
+   forward at [1, 3, 1024, 1024] timed (CUDA events) beside its conv FLOPs
+   over the f32 peak, ``salient_mask`` at 512x512 timed, the mask's
+   foreground share (neither none nor all); then ``api.immunize`` with
+   ``use_segmentation_mask=True`` and ``segmentation_model_path`` that
+   directory on the diffusion path's model at the ``TrainConfig`` defaults
+   for 3 iterations: the mask it used equal, bit for bit, to ISNet's on the
+   cropped source and unlike the heuristic's, K4's masked entry launched
+   once an iteration and its unmasked entry never, x_adv equal to the source outside the mask after every
+   iteration and moved inside it, the diffusion path's checks and launch
+   counts, ISNet dropped before the loop; then one iteration through the
+   kernels and through plain attention with the plain masked update
+   (within 1e-3 and 1e-4, both at the source outside the mask);
+10. evaluate: ``cli.main(["evaluate", ...])`` on the diffusion path's
    ``adversarial_image.png`` and ``noise.npz`` at the ``InferenceConfig``
    defaults (SD-1.5 at 512x512, f32, PLMS with 100 steps at strength 0.6:
    61 UNet calls an edit, guidance 7.5), two of ``INFERENCE_PROMPTS`` and
@@ -75,7 +90,7 @@ Phases, each fatal on failure:
    plain version and timed at both shapes in phase 3; the grids written,
    seconds per batch and per pair, peak memory and K1's launches; then one
    batch of 2 pairs under ``torch.profiler``;
-10. the SDXL path: ``api.immunize`` with ``use_sdxl=True`` at the
+11. the SDXL path: ``api.immunize`` with ``use_sdxl=True`` at the
    ``TrainConfig`` defaults otherwise (SDXL at 512x512, f32, L2, 10 reps,
    LCM K=4 -> 2 steps) for 3 iterations, with the diffusion path's checks;
    at 512x512 every UNet attention is short (T <= 1024) and plain, so K1-K3
@@ -84,7 +99,7 @@ Phases, each fatal on failure:
    ``torch.profiler``, and the SDXL evaluate gate on the same weights at
    1024x1024: one (clean, adv) pair, Euler 10 steps at strength 0.6, K1
    against plain attention within 1e-3;
-11. SDXL evaluate: ``cli.main(["evaluate", "--use-sdxl", "true",
+12. SDXL evaluate: ``cli.main(["evaluate", "--use-sdxl", "true",
    "--image-size", "1024", ...])`` at the ``InferenceConfig`` defaults
    (Euler, SDXL without LCM: 100 steps at strength 0.6, guidance 7.5, f32),
    one prompt, n_noise 1, no validation images: one cell, its edits one
@@ -92,7 +107,7 @@ Phases, each fatal on failure:
    1024x1024 source and an adversarial PNG made from it with a seeded
    perturbation inside the L2 ball; K1 at [4, 4096, 10, 64] (UNet) and
    [2, 16384, 1, 512] (VAE), held and timed at both shapes in phase 3;
-12. the universal attack: ``universal_attack.main([...])`` at its defaults
+13. the universal attack: ``universal_attack.main([...])`` at its defaults
    (SD-1.5 at 512x512, f32, the TAESD preview at full width, 4 reps, eps
    0.1, step 0.006, remat "none") over 3 synthetic images for 5 steps in 2
    epochs, a validation collage every 2 steps; the losses finite, every
@@ -105,14 +120,14 @@ Phases, each fatal on failure:
    within 1e-4; :func:`universal_gate` says why two bounds), one step under
    ``torch.profiler``, and the TAESD decode's forward and backward timed
    against the full VAE decode's;
-13. the universal attack on SDXL at its native 1024x1024 with remat
+14. the universal attack on SDXL at its native 1024x1024 with remat
    "full" for 2 steps, with the same checks (every forward runs twice, so
    K1 launches twice per attention), then one step under ``torch.profiler``;
    after each path, once its objects are dropped, at most HELD_LIMIT_GB may
    stay allocated on the card (a model left alive is 4.3 GB for SD-1.5 and
    13.9 GB for SDXL), and each path's peak is counted above what was
    allocated when it began;
-14. a JSON line naming every kernel with its launches on every path, error
+15. a JSON line naming every kernel with its launches on every path, error
    and times, then the card's name and power limit, then the result line.
 
 ``--report PATH`` also writes the full report there as JSON.
@@ -660,9 +675,10 @@ def check_updates(pk, gen) -> dict:
     return {"l2": l2, "l2_checks": checks, "linf": linf}
 
 
-def one_iteration_inputs(model, cfg, source, target):
+def one_iteration_inputs(model, cfg, source, target, mask=None):
     """What one PGD iteration of an immunize path takes, drawn as immunize
-    draws its first iteration: (sampler, plan, data, draws)."""
+    draws its first iteration: (sampler, plan, data, draws); ``mask`` is
+    the masked path's [1, 1, H, W]."""
     import torch
 
     from tml_image_editing_defense_torch.attack.inpaint import sample_inpaint_draws
@@ -688,7 +704,7 @@ def one_iteration_inputs(model, cfg, source, target):
     bank = model.embed_prompt_bank([format_prompt(p) for p in cfg.prompts])
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
     pool = torch.randn((1, *model.latent_shape), generator=gen, device=dev)
-    data = make_attack_data(model, cfg, source, target, bank, pool)
+    data = make_attack_data(model, cfg, source, target, bank, pool, mask=mask)
     return sampler, plan, data, draws
 
 
@@ -696,8 +712,11 @@ def check_iteration_against_plain(model, cfg, inputs, layers) -> dict:
     """One PGD iteration at full width on the same draws twice: through the
     kernels, and through plain attention with the plain update.  The
     iterates and the losses must agree (f32 on both sides; they differ in
-    the order of the attention sums only)."""
+    the order of the attention sums only); with a mask, both equal the
+    source outside it."""
     import dataclasses
+
+    import torch
 
     from tml_image_editing_defense_torch.attack.pgd import make_pgd_step
 
@@ -717,6 +736,12 @@ def check_iteration_against_plain(model, cfg, inputs, layers) -> dict:
            / abs(aux_p["avg_loss"].item())}
     require(out["x_adv_max_abs_diff"] <= 1e-3 and out["avg_loss_rel_diff"] <= 1e-4,
             f"one PGD iteration through the kernels vs plain: {out}")
+    if data.mask is not None:
+        # the masked update leaves the source where the mask is 0, on both sides
+        outside = (data.mask == 0).expand_as(x_k)
+        out["outside_mask_at_source"] = all(torch.equal(x[outside], data.source[outside])
+                                            for x in (x_k, x_p))
+        require(out["outside_mask_at_source"], f"masked iteration moved outside the mask: {out}")
     return out
 
 
@@ -870,10 +895,11 @@ def synthetic_image(path: Path, seed: int, size=(640, 600)) -> None:
     Image.fromarray(np.uint8(np.clip((arr + 1.5) / 3.0, 0, 1) * 255)).save(path)
 
 
-def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict) -> dict:
-    """``api.immunize(cfg)`` on the card with every count set to 0 just
-    before it and read just after; the launches must be those the code
-    implies: ``per_iteration`` times the iterations plus ``outside``."""
+def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict, model=None) -> dict:
+    """``api.immunize(cfg)`` on the card (on ``model`` where one is given)
+    with every count set to 0 just before it and read just after; the
+    launches must be those the code implies: ``per_iteration`` times the
+    iterations plus ``outside``."""
     import torch
 
     from tml_image_editing_defense_torch.core.image_ops import load_image
@@ -883,7 +909,7 @@ def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict) -> dict
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    result = api.immunize(cfg)              # on the card: the default device
+    result = api.immunize(cfg, model=model)     # on the card: the default device
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {kern.symbol: kern.launches for kern in kernels}
@@ -1009,6 +1035,159 @@ def resume_path(api, cfg, model, full_x, kernels, per_iteration: dict, tmp: Path
     require(diff <= 1e-3, f"resumed x_adv off the uninterrupted run's by {diff:.3e} (gate 1e-3)")
     return {"wall_s": wall, "iteration_row_t_s": rows[0]["t"], "x_adv_max_abs_diff": diff,
             "history": res.history, "launches": launches, "expected_launches": expected}
+
+
+def write_safetensors(path: Path, tensors: dict) -> int:
+    """This script's own writer of the safetensors format (the package has
+    a reader only): an 8-byte little-endian header length, the JSON header
+    of ``{name: {dtype, shape, data_offsets}}``, then the raw bytes.
+    f32 and i64 tensors; returns the file's size in bytes."""
+    names = {"float32": "F32", "int64": "I64"}
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        arr = t.detach().cpu().contiguous().numpy()
+        blob = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": names[str(arr.dtype)], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    path.write_bytes(len(raw).to_bytes(8, "little") + raw + b"".join(blobs))
+    return path.stat().st_size
+
+
+def isnet_conv_flops(isnet, size: int) -> int:
+    """The convolutions' operations (2 per multiply-add) of one ISNet
+    forward at [1, 3, size, size], counted on ``meta`` from the RMBG-1.4
+    config."""
+    import torch
+
+    model = isnet.build_isnet("rmbg", device="meta")
+    flops = [0]
+
+    def count(mod, inputs, out):
+        flops[0] += 2 * out.numel() * math.prod(mod.weight.shape[1:])
+
+    for mod in model.modules():
+        if isinstance(mod, torch.nn.Conv2d):
+            mod.register_forward_hook(count)
+    with torch.no_grad():
+        model(torch.empty((1, 3, size, size), device="meta"))
+    return flops[0]
+
+
+def masked_path(api, pk, cfg, model, kernels, per_iteration: dict, outside: dict,
+                tmp: Path) -> dict:
+    """The masked immunization (path m) on ``model``, after ISNet alone.
+
+    A random RMBG-1.4 at its published widths, made on the card from a
+    seed, goes to ``model.safetensors`` and comes back through
+    ``load_rmbg_checkpoint``; its forward at the native 1024x1024 and
+    ``salient_mask`` at ``cfg.image_size`` are timed and the mask's share
+    must lie strictly between 0 and 1.  Then ``api.immunize(cfg)`` with the
+    mask from that directory, through :func:`immunize_path`, with a spy on
+    ``make_attack_data`` (the mask used, and what is allocated there: ISNet
+    must be gone) and on ``ops.pgd_kernels.pgd_l2_update`` (after each
+    update with the mask, x_adv at the source where the mask is 0 and moved
+    where it is 1).  K4's launches with the mask are counted where K4's
+    masked entry launches, as every other count is."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from tml_image_editing_defense_torch.aux_models import segment
+    from tml_image_editing_defense_torch.core.image_ops import resize_crop_pil
+    from tml_image_editing_defense_torch.models import isnet
+
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = tmp / "rmbg"
+    ckpt.mkdir()
+    built = isnet.build_isnet("rmbg", device="cuda",
+                              generator=torch.Generator(device="cuda").manual_seed(14))
+    state = built.state_dict()
+    file_bytes = write_safetensors(ckpt / "model.safetensors", state)
+    seg = isnet.load_rmbg_checkpoint(ckpt)
+    loaded = seg.state_dict()
+    require(set(loaded) == set(state) and all(torch.equal(loaded[k], state[k]) for k in state),
+            "load_rmbg_checkpoint did not give back the written weights")
+    n_keys, n_params = len(state), sum(p.numel() for p in seg.parameters())
+    del built, state, loaded
+
+    crop = np.asarray(resize_crop_pil(Image.open(cfg.source_image_path).convert("RGB"),
+                                      cfg.image_size), np.float32) / 255.0
+    native = seg.config.image_size
+    x = isnet._resize(torch.from_numpy(crop).permute(2, 0, 1)[None].cuda(), native) - 0.5
+    with torch.no_grad():
+        forward_ms = cuda_ms(lambda: seg.saliency(x), 10)
+    walls, masks = [], []
+    for _ in range(2):                      # the first call, then a warm one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks.append(isnet.salient_mask(seg, crop, cfg.image_size))
+        walls.append(time.perf_counter() - t0)
+    want = masks[0]
+    require(np.array_equal(*masks), "two salient_mask calls differ")
+    share = float(want.mean())
+    require(0.0 < share < 1.0, f"the ISNet mask is {'all ones' if share else 'all zeros'}")
+    heuristic = segment._heuristic_saliency(crop)
+    require(not np.array_equal(want, heuristic), "the ISNet mask equals the heuristic one")
+    isnet_peak_gb = (torch.cuda.max_memory_allocated() - start) / 1e9
+    flops = isnet_conv_flops(isnet, native)
+    del seg, x
+    free_card()
+
+    seen = {"masked_updates": []}
+    make_data, l2_update = api.make_attack_data, pk.pgd_l2_update
+
+    def spy_make(*args, **kw):
+        data = make_data(*args, **kw)
+        seen["mask"] = None if data.mask is None else data.mask.clone()
+        seen["allocated_gb"] = (torch.cuda.memory_allocated() - seen["before"]) / 1e9
+        return data
+
+    def spy_l2(**kw):
+        out = l2_update(**kw)
+        if kw.get("mask") is not None:
+            out_mask = (kw["mask"] == 0).expand_as(out)
+            seen["masked_updates"].append(
+                (torch.equal(out[out_mask], kw["x_src"][out_mask]),
+                 bool((out != kw["x_src"])[~out_mask].any())))
+        return out
+
+    api.make_attack_data, pk.pgd_l2_update = spy_make, spy_l2
+    seen["before"] = torch.cuda.memory_allocated()
+    try:
+        res = immunize_path(api, cfg, kernels, per_iteration, outside, model=model)
+    finally:
+        api.make_attack_data, pk.pgd_l2_update = make_data, l2_update
+    updates = seen["masked_updates"]
+    require(len(updates) == cfg.n_optimization_steps,
+            f"{len(updates)} masked updates checked in {cfg.n_optimization_steps} iterations")
+    require(all(at_source for at_source, _ in updates), "x_adv left the source outside the mask")
+    require(all(moved for _, moved in updates), "x_adv did not move inside the mask")
+    used = seen["mask"]
+    require(used is not None and tuple(used.shape) == (1, 1, cfg.image_size, cfg.image_size),
+            f"immunize used no [1, 1, H, W] mask: {None if used is None else used.shape}")
+    used = used[0, 0].cpu().numpy()
+    differ = int((used != want).sum())
+    require(differ == 0, f"immunize's mask differs from ISNet's at {differ} pixels")
+    # ISNet (176 MB of weights) is gone before the loop: what is allocated at
+    # make_attack_data is the mask, the images, the prompt bank and the pool
+    require(seen["allocated_gb"] < 0.1, f"{seen['allocated_gb']:.3f} GB allocated above the "
+            "model when the attack data is made: ISNet was kept")
+    route = res.pop("_result").mask_route
+    require(route == "isnet", f"immunize took its mask from the {route} route, not ISNet")
+    res.update(
+        mask_route=route, checkpoint_keys=n_keys, checkpoint_bytes=file_bytes, isnet_params=n_params,
+        isnet_forward_ms=forward_ms, isnet_forward_flops=flops,
+        isnet_forward_bound_ms=flops / H100_F32_FLOPS * 1e3,
+        salient_mask_wall_s=walls[0], salient_mask_warm_wall_s=walls[1], mask_share=share,
+        heuristic_share=float(heuristic.mean()), isnet_peak_gb=isnet_peak_gb,
+        allocated_at_attack_data_gb=seen["allocated_gb"],
+        _mask=torch.from_numpy(used).cuda()[None, None])
+    return res
 
 
 def evaluate_gate(model, clean, adv, layers, sampler: str = "plms") -> dict:
@@ -1570,6 +1749,57 @@ def main(argv) -> int:
               f"UNet calls), K1 against plain attention on the same weights: max abs diff "
               f"{gate['max_abs_diff']:.2e} (mean {gate['mean_abs_diff']:.2e}) <= 1e-3, finite",
               flush=True)
+
+        # ---- the masked path, on the diffusion path's model ---------------
+        # ISNet (RMBG-1.4, 1024x1024) once, then the diffusion path's
+        # iterations with K4 taking the mask: the launches of path d, each
+        # update through K4's masked entry and none through the unmasked one
+        mcfg = dataclasses.replace(cfg, output_path=tmp / "out_masked", use_segmentation_mask=True,
+                                   segmentation_model_path=str(tmp / "rmbg"))
+        masked_start, masked_t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        per_it = cfg.grad_reps * (2 * long_attn + 1) + 1
+        msk = masked_path(
+            api, pk, mcfg, result.model, kernels,
+            {"tid_flash_fwd": per_it, "tid_flash_bwd_kv": per_it, "tid_flash_bwd_q": per_it,
+             "tid_pgd_l2_update_masked": 1},
+            {"tid_flash_fwd": 1 + n_vis}, tmp)
+        mask = msk.pop("_mask")
+        del msk["_src"], msk["_tgt"]            # the diffusion path's src and tgt
+        report["masked_path"] = msk
+        print(f"[masked] RMBG-1.4 ISNet, {msk['isnet_params'] / 1e6:.2f} M parameters: "
+              f"model.safetensors {msk['checkpoint_keys']} keys, {msk['checkpoint_bytes']} bytes; "
+              f"forward at [1, 3, 1024, 1024] {msk['isnet_forward_ms']:.3f} ms (conv "
+              f"{msk['isnet_forward_flops'] / 1e9:.1f} GFLOP, bound "
+              f"{msk['isnet_forward_bound_ms']:.3f} ms at 67 TFLOP/s f32); salient_mask "
+              f"{msk['salient_mask_wall_s'] * 1e3:.1f} ms wall "
+              f"(again {msk['salient_mask_warm_wall_s'] * 1e3:.1f} ms), "
+              f"peak {msk['isnet_peak_gb']:.2f} GB; mask share {msk['mask_share']:.4f} (heuristic "
+              f"{msk['heuristic_share']:.4f})", flush=True)
+        print(f"[masked] immunize sd15 512x512 f32 with the ISNet mask, {ITERATIONS} iterations x "
+              f"{mcfg.grad_reps} reps: {msk['wall_s']:.1f} s in all (ISNet included), "
+              f"{msk['s_per_iteration_after_first']:.2f} s/iteration after the first, peak "
+              f"{msk['max_memory_allocated_gb']:.2f} GB above the "
+              f"{msk['allocated_before_gb']:.2f} GB allocated before; losses "
+              f"{[round(h['avg_loss'], 4) for h in msk['history']]}; |x_adv - src|_2 = "
+              f"{msk['dist']:.3f} <= {mcfg.eps}; K4 with the mask "
+              f"{msk['launches']['tid_pgd_l2_update_masked']} times, "
+              f"x_adv at the source outside the mask after each; mask equal to ISNet's; "
+              f"{msk['allocated_at_attack_data_gb']:.3f} GB above the model at make_attack_data; "
+              f"launches {msk['launches']}", flush=True)
+        inputs = one_iteration_inputs(result.model, mcfg, src, tgt, mask=mask)
+        report["masked_vs_plain"] = check_iteration_against_plain(result.model, mcfg, inputs,
+                                                                  layers)
+        print(f"[model] one SD-1.5 512x512 masked PGD iteration, kernels vs plain attention and "
+              f"the plain masked update: {report['masked_vs_plain']}", flush=True)
+        del inputs, mask
+        free_card()
+        msk["held_above_start_gb"] = (torch.cuda.memory_allocated() - masked_start) / 1e9
+        PHASE_END_S["masked"] = time.perf_counter() - STARTED
+        msk["phase_s"] = time.perf_counter() - masked_t0
+        print(f"[masked] phase m in {msk['phase_s']:.1f} s (ISNet alone, immunize, the gate)",
+              flush=True)
+        require(msk["held_above_start_gb"] <= HELD_LIMIT_GB,
+                f"{msk['held_above_start_gb']:.2f} GB stay allocated after the masked path")
         del result
         free_card(held, "diffusion")
 
@@ -1797,6 +2027,7 @@ def kernel_rows(flash, updates, report) -> list:
                 "inpaint": report["inpaint_path"]["launches"],
                 "encoder": report["encoder_path"]["launches"],
                 "resume": report["resume"]["launches"],
+                "masked": report["masked_path"]["launches"],
                 "evaluate": report["evaluate_path"]["launches"],
                 "sdxl": report["sdxl_path"]["launches"],
                 "sdxl-evaluate": report["sdxl_evaluate_path"]["launches"],
@@ -1848,6 +2079,9 @@ def kernel_rows(flash, updates, report) -> list:
     update_rows += [("pgd_linf_update", path, "tid_pgd_linf_update", 64,
                      updates["linf"][f"{shape}-float32"])
                     for path, shape in (("inpaint", IMAGE_SHAPE), ("encoder", ENC_IMAGE_SHAPE))]
+    # the masked body (line 133), K4's masked entry, on path m
+    update_rows.append(("pgd_l2_update_masked", "masked", "tid_pgd_l2_update_masked", 133,
+                        updates["l2"]["f32-mask"]))
     for name, path, sym, line, r in update_rows:
         rows.append({
             "name": name, "route": "cuda", "source": src_pgd, "replaces": f"{tpu_pgd}:{line}",

@@ -31,8 +31,9 @@ ROOT = Path(__file__).resolve().parents[1]
 ONE_KERNEL = "if (vectorized && C <= kL2ResidentC) err = grid_resident<E, MASK>(grid, resident);"
 
 
-def build_two_kernels(lib_mod, pk, out_dir: Path):
-    """The C entry of K4 built with the one-kernel path turned off."""
+def build_two_kernels(lib_mod, pk, out_dir: Path) -> dict:
+    """K4's C entries (without and with a mask) built with the one-kernel
+    path turned off, by the wrapper's kernel object that calls each."""
     src = (lib_mod.CSRC / "pgd_update.cu").read_text()
     if ONE_KERNEL not in src:
         raise RuntimeError("pgd_update.cu no longer selects its one-kernel path as expected")
@@ -40,9 +41,13 @@ def build_two_kernels(lib_mod, pk, out_dir: Path):
     subprocess.run([lib_mod._nvcc(), *lib_mod.NVCC_FLAGS, "-shared",
                     str(out_dir / "two_kernels.cu"), "-o", str(out_dir / "two_kernels.so")],
                    check=True, capture_output=True)
-    fn = getattr(ctypes.CDLL(str(out_dir / "two_kernels.so")), pk.PGD_L2_UPDATE.symbol)
-    fn.argtypes, fn.restype = pk.PGD_L2_UPDATE.argtypes, ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(out_dir / "two_kernels.so"))
+    fns = {}
+    for kern in (pk.PGD_L2_UPDATE, pk.PGD_L2_UPDATE_MASKED):
+        fn = getattr(lib, kern.symbol)
+        fn.argtypes, fn.restype = kern.argtypes, ctypes.c_int
+        fns[kern] = fn
+    return fns
 
 
 def main(argv) -> int:
@@ -64,16 +69,18 @@ def main(argv) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
         fns = {"two_kernels": build_two_kernels(_lib, pk, Path(tmp))}
-        pk.pgd_l2_update(*(torch.zeros(1, 3, 8, 8, device="cuda") for _ in range(3)), 1.0, 1.0,
-                         -1.0, 1.0)
-        fns["as_built"] = pk.PGD_L2_UPDATE._fn
+        zeros = [torch.zeros(1, 3, 8, 8, device="cuda") for _ in range(3)]
+        for m in (None, torch.ones(1, 1, 8, 8, device="cuda")):
+            pk.pgd_l2_update(*zeros, 1.0, 1.0, -1.0, 1.0, mask=m)
+        fns["as_built"] = {kern: kern._fn for kern in fns["two_kernels"]}
         for key, shape, dtype, mask, case in cs.K4_TIMED:
             x, g, src, m = cs.l2_inputs(gen, shape, case, mask)
             x, g, src = (t.to(getattr(torch, dtype)) for t in (x, g, src))
             row = {"case": key, "shape": list(shape), "dtype": dtype, "mask": mask, "err": {},
                    "warm_ms": {}, "cold_ms": {}, "kernels": {}}
             for name in ("as_built", "two_kernels", "two_kernels", "as_built"):
-                pk.PGD_L2_UPDATE._fn = fns[name]
+                for kern, fn in fns[name].items():
+                    kern._fn = fn
                 if name not in row["err"]:
                     row["err"][name] = cs.check_l2(pk, gen, shape, getattr(torch, dtype), mask,
                                                    case)["err"]
@@ -82,7 +89,8 @@ def main(argv) -> int:
                 row["warm_ms"].setdefault(name, []).append(warm["ms"])
                 row["cold_ms"].setdefault(name, []).append(cold["ms"])
                 row["kernels"][name] = list(warm["kernels_ms"])
-            pk.PGD_L2_UPDATE._fn = fns["as_built"]
+            for kern, fn in fns["as_built"].items():
+                kern._fn = fn
             results["cases"].append(row)
             print(json.dumps(row), flush=True)
     if args.report is not None:

@@ -131,17 +131,19 @@ def test_evaluate_without_a_device_raises_where_cuda_is_absent(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"params_path": "weights.msgpack"},
-    {"use_segmentation_mask": True},
-    {"add_image_caption_to_prompts": True},
+    {"tokenizer_paths": ["tok"]},
+    {"use_segmentation_mask": True, "params_path": "weights.msgpack"},
 ])
 def test_later_slices_raise_not_implemented(tmp_path, kw):
+    """The real-weight knobs stay refused; the aux models' are taken
+    (tests/test_torch_masked.py, tests/test_torch_aux_models.py)."""
     with pytest.raises(NotImplementedError):
         api.immunize(_cfg(tmp_path, **kw), device="cpu")
 
 
 @pytest.mark.parametrize("kw", [
     {"eval_shards": 2},
-    {"add_image_caption_to_prompts": True},
+    {"params_path": "weights.msgpack"},
     {"tokenizer_paths": ["tok"]},
 ])
 def test_evaluate_later_slices_raise_not_implemented(tmp_path, kw):

@@ -25,7 +25,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert {f"{port.__name__}.{m}" for m in ("cli", "pipelines.img2img", "utils.checkpoint",
                                              "utils.preemption", "attack.universal",
                                              "models.tiny_vae", "data.dataset",
-                                             "universal_attack")} <= set(mods)
+                                             "universal_attack", "aux_models.segment",
+                                             "aux_models.caption",
+                                             "models.isnet")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

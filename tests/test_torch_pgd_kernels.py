@@ -205,6 +205,9 @@ def test_update_launches_nothing_on_cpu_and_rejects_unknown_norms():
     x, g, s, _ = _inputs(1, 40, False)
     pk.fused_perturbation_step("l2", x_adv=nchw(x), grad=nchw(g), x_src=nchw(s), step_size=1.0,
                                eps=0.5, min_value=-1.0, max_value=1.0, mask=None)
-    assert pk.PGD_L2_UPDATE.launches == 0
+    pk.fused_perturbation_step("l2", x_adv=nchw(x), grad=nchw(g), x_src=nchw(s), step_size=1.0,
+                               eps=0.5, min_value=-1.0, max_value=1.0,
+                               mask=torch.ones(1, 1, 32, 32))
+    assert pk.PGD_L2_UPDATE.launches == 0 and pk.PGD_L2_UPDATE_MASKED.launches == 0
     with pytest.raises(ValueError, match="unknown norm_type"):
         pk.fused_perturbation_step("l1", x_adv=nchw(x))

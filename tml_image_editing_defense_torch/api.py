@@ -7,6 +7,9 @@
 - :func:`evaluate` (reference ``Inference.run_inference``,
   main.py:431-589) and :func:`transfer_perturbation` (main.py:413-429).
 
+Both take the caption prefix (main.py:64-72, 324-332); ``immunize`` also
+the salient-region mask (main.py:311-322), through ``aux_models``.
+
 ``immunize`` writes the reference's artifacts: ``adversarial_image.png``
 (the uint8 round-trip is part of the measured defense, main.py:618-621),
 ``noise.npz`` (in the JAX package's layout, so either package's
@@ -66,6 +69,10 @@ class ImmunizeResult:
     noise_pool: Optional[torch.Tensor]
     history: list
     model: DiffusionModel
+    #: the route that gave the salient mask ("isnet", "pipeline" or
+    #: "heuristic"; ``aux_models.segment.salient_mask_and_route``), None
+    #: without ``use_segmentation_mask``
+    mask_route: Optional[str] = None
 
 
 def training_sampler_kind(family: str, use_lcm: bool) -> str:
@@ -100,8 +107,6 @@ def _train_attn_chunk(image_size: int) -> Optional[int]:
 
 
 _LATER = {
-    "use_segmentation_mask": "aux-models slice (ISNet salient mask)",
-    "add_image_caption_to_prompts": "aux-models slice (BLIP-2 caption)",
     "params_path": "real-weight slice",
     "tokenizer_paths": "real-weight slice",
 }
@@ -112,6 +117,20 @@ def _refuse_later(cfg) -> None:
         value = getattr(cfg, name, None)
         if value is not None and value is not False:
             raise NotImplementedError(f"{name} comes with the {slice_} of the port")
+
+
+def _caption_prefix(cfg, image: Image.Image, device) -> str:
+    """The prompts' prefix (main.py:64-72): ``default_source_image_caption``,
+    else with ``add_image_caption_to_prompts`` the BLIP-2 caption of
+    ``image`` from ``caption_model_path`` ("" when none loads), else ""."""
+    if cfg.default_source_image_caption:
+        return cfg.default_source_image_caption
+    if not cfg.add_image_caption_to_prompts:
+        return ""
+    from tml_image_editing_defense_torch.aux_models.caption import get_image_caption
+
+    return get_image_caption(image.convert("RGB"), model_path=cfg.caption_model_path,
+                             device=device)
 
 
 def _check_supported(cfg: TrainConfig) -> None:
@@ -141,7 +160,18 @@ def immunize(
     noise pool (a missing file starts afresh, so a relaunch may always pass
     it).  With ``cfg.checkpoint_interval`` the state goes to
     ``output_path/attack_state.npz`` on that schedule; SIGTERM or SIGUSR1
-    stop the loop after the running iteration and save the state there."""
+    stop the loop after the running iteration and save the state there.
+
+    ``use_segmentation_mask`` restricts the L2 step to the source's salient
+    region (main.py:260-261, 311-322): ISNet from the RMBG-1.4 checkpoint
+    directory ``segmentation_model_path`` on ``device``, else the JAX
+    package's fallbacks (``aux_models.segment.get_salient_mask``); the
+    result's ``mask_route`` names the route that gave the mask.  The
+    L-inf step ignores the mask, as in the reference.  A resumed run
+    computes the mask again; the state does not hold it.
+    ``add_image_caption_to_prompts`` prefixes the prompts with the source's
+    BLIP-2 caption (``caption_model_path``) unless
+    ``default_source_image_caption`` is set."""
     _check_supported(cfg)
     device = resolve_device(device)
     dtype = set_numerics(cfg.dtype)
@@ -166,9 +196,22 @@ def immunize(
         return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
     source, target = load(cfg.source_image_path), load(cfg.target_image_path)
-    caption = cfg.default_source_image_caption
+    with Image.open(cfg.source_image_path) as img:
+        caption = _caption_prefix(cfg, img, device)
     if caption:
         print(f"Running with prefix: {caption}")
+    # the salient-region mask (main.py:311-322), before the set-up draws; the
+    # ISNet it loads is dropped when salient_mask_and_route returns
+    mask = mask_route = None
+    if cfg.use_segmentation_mask:
+        from tml_image_editing_defense_torch.aux_models.segment import salient_mask_and_route
+
+        m, mask_route = salient_mask_and_route(cfg.source_image_path, cfg.image_size,
+                                               model_path=cfg.segmentation_model_path,
+                                               device=device)
+        print(f"[immunize] salient mask from the {mask_route} route, foreground share "
+              f"{float(m.mean()):.4f}", flush=True)
+        mask = torch.from_numpy(m).to(device=device, dtype=dtype)[None, None]
     bank = model.embed_prompt_bank([format_prompt(p, caption) for p in cfg.prompts],
                                    cfg.negative_prompt)
     lat_shape = model.latent_shape
@@ -186,7 +229,7 @@ def immunize(
         raise ValueError("empty denoising plan: limit_timesteps filtered out every step "
                          f"(K={cfg.n_denoising_steps_per_iteration})")
     data = make_attack_data(model, cfg, source, target, bank, noise_pool,
-                            target_latent_eps=target_eps)
+                            target_latent_eps=target_eps, mask=mask)
 
     x_init, start_it, seed = None, 0, cfg.seed
     if resume_from is not None and Path(resume_from).exists():
@@ -255,7 +298,7 @@ def immunize(
     finally:
         if own_logger:
             logger.finish()
-    return ImmunizeResult(adv_pil, x_adv, pool_to_save, history, model)
+    return ImmunizeResult(adv_pil, x_adv, pool_to_save, history, model, mask_route)
 
 
 # ---------------------------------------------------------------------------
@@ -354,7 +397,7 @@ def evaluate(
     source_pil = image_ops.resize_crop_pil(Image.open(cfg.source_image_path).convert("RGB"), size)
     target_pil = image_ops.resize_crop_pil(Image.open(cfg.target_image_path).convert("RGB"), size)
     perturbation = np.asarray(adversarial_image, np.float32) - np.asarray(source_pil, np.float32)
-    caption = cfg.default_source_image_caption
+    caption = _caption_prefix(cfg, source_pil, device)
     out_dir = Path(cfg.output_path)
     out_dir.mkdir(parents=True, exist_ok=True)
 

@@ -129,7 +129,16 @@ def format_prompt(prompt: str, caption: str = "") -> str:
 
 @dataclass
 class TrainConfig:
-    """Immunization (PGD attack) configuration (reference configs.py:86-159)."""
+    """Immunization (PGD attack) configuration (reference configs.py:86-159).
+
+    ``use_segmentation_mask`` restricts the L2 step to the source's salient
+    region: ISNet from the RMBG-1.4 checkpoint directory
+    ``segmentation_model_path``, else the JAX package's fallbacks (the
+    ``transformers`` pipeline, then a heuristic).
+    ``add_image_caption_to_prompts`` prefixes the prompts with the source's
+    BLIP-2 caption (``caption_model_path``).  ``api.immunize`` refuses the
+    knobs of a later slice: ``params_path`` and ``tokenizer_paths`` (real
+    weights)."""
 
     # --- paths / bookkeeping ---
     source_image_path: Path = Path("data/images/japan.jpg")
@@ -238,9 +247,10 @@ class TrainConfig:
 class InferenceConfig:
     """Evaluation configuration (reference ``configs.py:162-193``).
 
-    ``eval_shards`` takes None or 1 (one card).  ``api.evaluate`` refuses
-    the knobs of later slices: ``add_image_caption_to_prompts``
-    (aux models), ``params_path`` and ``tokenizer_paths`` (real weights)."""
+    ``eval_shards`` takes None or 1 (one card).  ``add_image_caption_to_prompts``
+    prefixes the prompts with the source's BLIP-2 caption
+    (``caption_model_path``).  ``api.evaluate`` refuses the knobs of a later
+    slice: ``params_path`` and ``tokenizer_paths`` (real weights)."""
 
     source_image_path: Path = Path("data/images/japan.jpg")
     target_image_path: Path = Path("data/images/japan.jpg")

@@ -475,23 +475,38 @@ extern "C" int tid_pgd_linf_update(const void* x_adv, const void* grad, const vo
 }
 
 // K4: one kernel or two, one call.  `partials` is the wrapper's scratch of
-// B * ceil(hw / (256 * 16 / item)) float4s; `mask` is null or [B, hw] f32.
-extern "C" int tid_pgd_l2_update(const void* x_adv, const void* grad, const void* src,
-                                 const void* mask, void* partials, void* out, int B, int C, int hw,
-                                 int is_bf16, float step, float eps, float min_value,
-                                 float max_value, void* stream) {
+// B * ceil(hw / (256 * 16 / item)) float4s.  Two C entries, one without a
+// mask (_l2_kernel) and one with a [B, hw] f32 mask (_l2_masked_kernel), so
+// that each has its own launch count.
+namespace {
+
+template <bool MASK>
+cudaError_t l2_update(const void* x_adv, const void* grad, const void* src, const float* m,
+                      void* partials, void* out, int B, int C, int hw, int is_bf16, float step,
+                      float eps, float min_value, float max_value, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const float* m = (const float*)mask;
-  cudaError_t err;
   if (is_bf16)
-    err = m ? launch_l2<BF16Elem, true>(x_adv, grad, src, m, partials, out, B, C, hw, step, eps,
-                                        min_value, max_value, s)
-            : launch_l2<BF16Elem, false>(x_adv, grad, src, m, partials, out, B, C, hw, step, eps,
-                                         min_value, max_value, s);
-  else
-    err = m ? launch_l2<F32Elem, true>(x_adv, grad, src, m, partials, out, B, C, hw, step, eps,
-                                       min_value, max_value, s)
-            : launch_l2<F32Elem, false>(x_adv, grad, src, m, partials, out, B, C, hw, step, eps,
-                                        min_value, max_value, s);
-  return (int)err;
+    return launch_l2<BF16Elem, MASK>(x_adv, grad, src, m, partials, out, B, C, hw, step, eps,
+                                     min_value, max_value, s);
+  return launch_l2<F32Elem, MASK>(x_adv, grad, src, m, partials, out, B, C, hw, step, eps,
+                                  min_value, max_value, s);
+}
+
+}  // namespace
+
+extern "C" int tid_pgd_l2_update(const void* x_adv, const void* grad, const void* src,
+                                 void* partials, void* out, int B, int C, int hw, int is_bf16,
+                                 float step, float eps, float min_value, float max_value,
+                                 void* stream) {
+  return (int)l2_update<false>(x_adv, grad, src, nullptr, partials, out, B, C, hw, is_bf16, step,
+                               eps, min_value, max_value, stream);
+}
+
+extern "C" int tid_pgd_l2_update_masked(const void* x_adv, const void* grad, const void* src,
+                                        const void* mask, void* partials, void* out, int B, int C,
+                                        int hw, int is_bf16, float step, float eps,
+                                        float min_value, float max_value, void* stream) {
+  if (mask == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)l2_update<true>(x_adv, grad, src, (const float*)mask, partials, out, B, C, hw,
+                              is_bf16, step, eps, min_value, max_value, stream);
 }

@@ -12,11 +12,17 @@ mechanical:
 - CLIP paths take the transformers prefixes (``text_model.encoder...``).
 
 The port's modules then ``load_state_dict(strict=True)`` the result.
+
+:func:`load_safetensors` reads a checkpoint file without the ``safetensors``
+package.
 """
 
 from __future__ import annotations
 
+import json
+import math
 import re
+from pathlib import Path
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -85,6 +91,60 @@ def _to_torch_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
         if arr.ndim == 4:
             return arr.transpose(3, 2, 0, 1)   # conv HWIO -> OIHW
     return arr
+
+
+#: safetensors dtype names -> torch dtypes (the format's little-endian bytes)
+_ST_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+              "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+              "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
+
+
+def load_safetensors(path) -> Dict[str, torch.Tensor]:
+    """Read a ``.safetensors`` file into CPU tensors, with no ``safetensors``
+    package (the counterpart of the JAX package's ``load_safetensors``,
+    convert.py:170-174).
+
+    The format: an 8-byte little-endian header length, a JSON header of
+    ``{name: {dtype, shape, data_offsets}}`` (and an optional
+    ``__metadata__``), then the raw little-endian bytes, each tensor's at
+    ``data_offsets`` from the end of the header.  A header whose offsets
+    overrun the file, overlap each other or disagree with the shape, or
+    that names an unknown dtype, raises ``ValueError``."""
+    buf = bytearray(Path(path).read_bytes())
+    if len(buf) < 8:
+        raise ValueError(f"{path}: {len(buf)} bytes, too short for a safetensors header")
+    n = int.from_bytes(buf[:8], "little")
+    if n > len(buf) - 8:
+        raise ValueError(f"{path}: header of {n} bytes overruns the file ({len(buf)} bytes)")
+    try:
+        header = json.loads(buf[8:8 + n].decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"{path}: unreadable header ({e})") from None
+    if not isinstance(header, dict):
+        raise ValueError(f"{path}: the header is not a JSON object")
+    header.pop("__metadata__", None)
+    start, size = 8 + n, len(buf) - 8 - n
+    spans, out = [], {}
+    for name, info in header.items():
+        dtype = _ST_DTYPES.get(info.get("dtype"))
+        if dtype is None:
+            raise ValueError(f"{path}: {name} has an unknown dtype {info.get('dtype')!r}")
+        shape, (begin, end) = tuple(info["shape"]), info["data_offsets"]
+        numel = math.prod(shape)
+        if not 0 <= begin <= end <= size:
+            raise ValueError(f"{path}: {name}'s offsets [{begin}, {end}] overrun the "
+                             f"{size} bytes of data")
+        if end - begin != numel * dtype.itemsize:
+            raise ValueError(f"{path}: {name} holds {end - begin} bytes, its shape {list(shape)} "
+                             f"in {info['dtype']} needs {numel * dtype.itemsize}")
+        spans.append((begin, end, name))
+        out[name] = (torch.frombuffer(buf, dtype=dtype, count=numel, offset=start + begin)
+                     .reshape(shape).clone() if numel else torch.empty(shape, dtype=dtype))
+    spans.sort()
+    for (_, end, a), (begin, _, b) in zip(spans, spans[1:]):
+        if begin < end:
+            raise ValueError(f"{path}: the bytes of {a} and {b} overlap")
+    return out
 
 
 def from_jax_params(params: Mapping, kind: str = "unet") -> Dict[str, torch.Tensor]:

@@ -29,7 +29,10 @@ from tml_image_editing_defense_torch.ops._lib import (
     stream_ptr,
 )
 
-PGD_L2_UPDATE = CudaKernel("tid_pgd_l2_update", [P, P, P, P, P, P, I, I, I, I, F, F, F, F, P])
+PGD_L2_UPDATE = CudaKernel("tid_pgd_l2_update", [P, P, P, P, P, I, I, I, I, F, F, F, F, P])
+#: K4 with a mask: the same kernels, its own C entry and so its own count.
+PGD_L2_UPDATE_MASKED = CudaKernel("tid_pgd_l2_update_masked",
+                                  [P, P, P, P, P, P, I, I, I, I, F, F, F, F, P])
 PGD_LINF_UPDATE = CudaKernel("tid_pgd_linf_update", [P, P, P, P, L, I, F, F, F, F, P])
 
 #: Bytes of one image plane that one block of K4 takes (``kL2Threads`` x 16
@@ -63,21 +66,23 @@ def pgd_l2_update(
                          f"shape, got {tuple(x_adv.shape)}, {tuple(grad.shape)}, "
                          f"{tuple(x_src.shape)}")
     b, c, h, w = x_adv.shape
-    mask_ptr = None
     if mask is not None:
         if tuple(mask.shape) != (b, 1, h, w) or mask.device != x_adv.device:
             raise ValueError(f"pgd_l2_update: mask must be [{b}, 1, {h}, {w}] on "
                              f"{x_adv.device}, got {tuple(mask.shape)} on {mask.device}")
         mask = mask.to(torch.float32).contiguous()      # no copy when already so
-        mask_ptr = mask.data_ptr()
     out = torch.empty_like(x_adv)
     if out.numel():
         partials = torch.empty((b, l2_chunks(h * w, x_adv.element_size()), 4),
                                dtype=torch.float32, device=x_adv.device)
-        PGD_L2_UPDATE(x_adv.data_ptr(), grad.data_ptr(), x_src.data_ptr(), mask_ptr,
-                      partials.data_ptr(), out.data_ptr(), b, c, h * w,
-                      int(x_adv.dtype == torch.bfloat16), float(step_size), float(eps),
-                      float(min_value), float(max_value), stream_ptr(x_adv))
+        rest = (partials.data_ptr(), out.data_ptr(), b, c, h * w,
+                int(x_adv.dtype == torch.bfloat16), float(step_size), float(eps),
+                float(min_value), float(max_value), stream_ptr(x_adv))
+        if mask is None:
+            PGD_L2_UPDATE(x_adv.data_ptr(), grad.data_ptr(), x_src.data_ptr(), *rest)
+        else:
+            PGD_L2_UPDATE_MASKED(x_adv.data_ptr(), grad.data_ptr(), x_src.data_ptr(),
+                                 mask.data_ptr(), *rest)
     return out
 
 
@@ -123,4 +128,4 @@ def fused_perturbation_step(norm_type: str, **kw) -> torch.Tensor:
     raise ValueError(f"unknown norm_type {norm_type!r}")
 
 
-KERNELS = (PGD_L2_UPDATE, PGD_LINF_UPDATE)
+KERNELS = (PGD_L2_UPDATE, PGD_L2_UPDATE_MASKED, PGD_LINF_UPDATE)
