@@ -18,11 +18,13 @@ Phases, each fatal on failure:
    attack's batched VAE mid-block) in f32, at the evaluation's
    [8, 4096, 8, 40] and [4, 4096, 1, 512], at the SDXL evaluation's
    [4, 4096, 10, 64] and [2, 16384, 1, 512] and at the SDXL universal
-   attack's [2, 4096, 10, 64] and [1, 16384, 1, 512] in f32; K1-K3 at ragged T (70..1000)
+   attack's [2, 4096, 10, 64] and [1, 16384, 1, 512] in f32 and bf16 (the
+   bf16 SDXL 1024x1024 immunize's shapes); K1-K3 at ragged T (70..1000)
    at every compiled head dim (40, 64, 80, 512: every tile plan of K2/K3)
    in f32 and bf16, and K1-K3's refusal of a misaligned tensor; the L2 PGD
    update K4 at [1, 3, 512, 512] with and without a 0/1 mask, at
-   [8, 3, 512, 512] (per-sample norms) and in bf16 (within one bf16 ulp),
+   [8, 3, 512, 512] (per-sample norms) and in bf16 (within one bf16 ulp;
+   also at [1, 3, 1024, 1024]),
    at a ragged [2, 3, 33, 35], on misaligned views, on the eps-ball with
    the step outward and inward, with a zero gradient and an all-zero mask,
    two calls always bit-equal; the L-inf PGD update K5 at [1, 3, 512, 512]
@@ -32,10 +34,10 @@ Phases, each fatal on failure:
    (SDPA's forward for K1, with the backend it took, SDPA's backward for K2
    and K3 together), and the
    least time the card could take (the bound; f32 attention at the 3xTF32
-   rate, 495/3 TFLOP/s).  Times are CUDA-event means over back-to-back
-   calls from the host and, apart from host time, medians of the kernels'
-   own spans in torch.profiler (K4 and K5 with the operands in L2 and
-   after a 128 MB write evicts them);
+   rate, 495/3 TFLOP/s; bf16 at 989).  Times are CUDA-event means over
+   back-to-back calls from the host and, apart from host time, medians of
+   the kernels' own spans in torch.profiler (K4 and K5 with the operands in
+   L2 and after a 128 MB write evicts them);
 4. the diffusion path: ``api.immunize`` with the ``TrainConfig`` defaults
    (SD-1.5 at 512x512, f32, L2 eps 32, 10 EOT reps, LCM K=4 -> 2 steps) for
    3 iterations, random weights made on the card from the seed, synthetic
@@ -44,7 +46,12 @@ Phases, each fatal on failure:
    number of times the port's code implies; then one more iteration on the
    same draws through the kernels and through plain attention with the
    plain update, which must agree; then one under ``torch.profiler``: device
-   time by kernel and by group, and the device's idle share;
+   time by kernel and by group, and the device's idle share; the useful
+   model FLOPs of an iteration (``utils/flops.py``) and their share of the
+   f32 peak (likewise for the inpaint and SDXL paths); then the first
+   iteration on the same draws with ``remat_policy="full", remat_vae=True``
+   and with ``eot_chunk=2``, each against the defaults (x_adv within 1e-3:
+   the math is the same), with both one's seconds and peak;
 5. the inpaint path: ``api.immunize`` with ``attack_mode="inpaint"`` and
    the L-inf preset (SD-1.5-inpaint at 512x512, f32, eps 0.1, step 0.006,
    5 reps, 100 < t < 800 -> 3 steps) for 3 iterations, with the same checks
@@ -127,7 +134,17 @@ Phases, each fatal on failure:
    stay allocated on the card (a model left alive is 4.3 GB for SD-1.5 and
    13.9 GB for SDXL), and each path's peak is counted above what was
    allocated when it began;
-15. a JSON line naming every kernel with its launches on every path, error
+15. SDXL immunize at its native 1024x1024 in bf16 (xl1k): ``api.immunize``
+   with ``TrainConfig(use_sdxl=True, image_size=1024, dtype="bfloat16",
+   remat_policy="full", remat_vae=True)`` (the JAX package's configuration,
+   scripts/probe_sdxl_1024.py:134-140; 10 reps, LCM K=4 -> 2 UNet steps)
+   for 2 iterations, s/iteration from the second, with the diffusion
+   path's checks, K1-K4 launched as ``pgd_launches`` predicts from the UNet
+   config, the VAE mid-blocks and the remat recompute; one iteration under
+   ``torch.profiler``; its useful FLOPs and their share of the bf16 peak;
+   then the kernels against plain attention on one f32 iteration of 1 rep
+   at 1024x1024 with the same remat (within 1e-3 and 1e-4);
+16. a JSON line naming every kernel with its launches on every path, error
    and times, then the card's name and power limit, then the result line.
 
 ``--report PATH`` also writes the full report there as JSON.
@@ -179,6 +196,12 @@ SDXL_EVAL_UNET_SHAPE, SDXL_EVAL_VAE_SHAPE = (4, 4096, 10, 64), (2, 16384, 1, 512
 #: the VAE encoder's mid-block (128x128 tokens)
 UNIVERSAL_STEPS, UNIVERSAL_VIS_EVERY, UNIVERSAL_IMAGES, UNIVERSAL_SDXL_STEPS = 5, 2, 3, 2
 UX_UNET_SHAPE, UX_VAE_SHAPE = (2, 4096, 10, 64), (1, 16384, 1, 512)
+#: SDXL immunize at its native 1024x1024 in bf16 (xl1k, the JAX package's
+#: scripts/probe_sdxl_1024.py configuration): remat "full" with remat_vae,
+#: 10 reps, 2 iterations; K1-K3 in bf16 at the universal-sdxl shapes (the
+#: UNet's 64x64 level for the CFG pair, the VAE mid-block), K4 in bf16 at
+#: the 1024x1024 image
+XL1K_SIZE, XL1K_ITERATIONS, XL1K_IMAGE_SHAPE = 1024, 2, (1, 3, 1024, 1024)
 LINF = dict(step_size=0.006, eps=0.1, min_value=-1.0, max_value=1.0)
 L2 = dict(step_size=7.5, eps=32.0, min_value=-1.0, max_value=1.0)     # the TrainConfig defaults
 #: a write this large between two timed calls leaves none of their operands
@@ -205,18 +228,17 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs after one warm-up, by CUDA events."""
-    import torch
+    """Mean device time of ``fn`` over ``reps`` runs after one warm-up, by
+    CUDA events (``utils.profiling.StepTimer``)."""
+    from tml_image_editing_defense_torch.utils.profiling import StepTimer
 
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    timer = StepTimer("cuda")
+    with timer:
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    with timer:
+        for _ in range(reps):
+            fn()
+    return timer.last * 1e3 / reps
 
 
 def profile_events(prof) -> list:
@@ -391,14 +413,13 @@ def check_flash(fa, shape, dtype, gen, times: bool) -> dict:
     }
     out["peak_tflops"] = peak / 1e12
     out["ms"]["bwd"] = out["ms"]["bwd_kv"] + out["ms"]["bwd_q"]
-    if dtype == torch.float32:
-        out["device_ms"] = {
-            "fwd": device_ms(lambda: fa.flash_fwd(q, k, v), ("flash_fwd_kernel",), reps)["ms"],
-            "bwd_kv": device_ms(lambda: fa.flash_bwd_kv(q, k, v, do, lse_ref, delta),
-                                ("flash_bwd_kv_kernel",), reps)["ms"],
-            "bwd_q": device_ms(lambda: fa.flash_bwd_q(q, k, v, do, lse_ref, delta),
-                               ("flash_bwd_q_kernel",), reps)["ms"],
-        }
+    out["device_ms"] = {
+        "fwd": device_ms(lambda: fa.flash_fwd(q, k, v), ("flash_fwd_kernel",), reps)["ms"],
+        "bwd_kv": device_ms(lambda: fa.flash_bwd_kv(q, k, v, do, lse_ref, delta),
+                            ("flash_bwd_kv_kernel",), reps)["ms"],
+        "bwd_q": device_ms(lambda: fa.flash_bwd_q(q, k, v, do, lse_ref, delta),
+                           ("flash_bwd_q_kernel",), reps)["ms"],
+    }
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     out["library_ms"] = {"fwd": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), reps)}
     out["library_backend"] = sdpa_backend(qt, kt, vt)
@@ -604,7 +625,8 @@ def check_linf(pk, gen, shape, dtype, times: bool, misaligned: bool = False,
 K4_TIMED = (("f32", IMAGE_SHAPE, "float32", False, "random"),
             ("f32-mask", IMAGE_SHAPE, "float32", True, "random"),
             ("batch8-f32", ENC_IMAGE_SHAPE, "float32", False, "radii"),
-            ("bf16", IMAGE_SHAPE, "bfloat16", False, "random"))
+            ("bf16", IMAGE_SHAPE, "bfloat16", False, "random"),
+            ("bf16-1024", XL1K_IMAGE_SHAPE, "bfloat16", False, "random"))
 RAGGED_L2 = (2, 3, 33, 35)          # H*W = 1155: no multiple of a vector or of a chunk
 ON_BALL_L2 = (2, 3, 512, 512)
 #: K4's further checks: (shape, dtype, mask, inputs, misaligned)
@@ -677,8 +699,8 @@ def check_updates(pk, gen) -> dict:
 
 def one_iteration_inputs(model, cfg, source, target, mask=None):
     """What one PGD iteration of an immunize path takes, drawn as immunize
-    draws its first iteration: (sampler, plan, data, draws); ``mask`` is
-    the masked path's [1, 1, H, W]."""
+    draws its first iteration, in the source's dtype: (sampler, plan, data,
+    draws); ``mask`` is the masked path's [1, 1, H, W]."""
     import torch
 
     from tml_image_editing_defense_torch.attack.inpaint import sample_inpaint_draws
@@ -700,10 +722,11 @@ def one_iteration_inputs(model, cfg, source, target, mask=None):
                                      plan.num_steps)
     else:
         plan = sampler.plan(k, limit_t=700)
-        draws = sample_draws(gen0, cfg, len(cfg.prompts), 1, model.latent_shape, plan.num_steps)
+        draws = sample_draws(gen0, cfg, len(cfg.prompts), 1, model.latent_shape, plan.num_steps,
+                             source.dtype)
     bank = model.embed_prompt_bank([format_prompt(p) for p in cfg.prompts])
     gen = torch.Generator(device=dev).manual_seed(cfg.seed)
-    pool = torch.randn((1, *model.latent_shape), generator=gen, device=dev)
+    pool = torch.randn((1, *model.latent_shape), generator=gen, device=dev, dtype=source.dtype)
     data = make_attack_data(model, cfg, source, target, bank, pool, mask=mask)
     return sampler, plan, data, draws
 
@@ -795,13 +818,17 @@ def kernel_group(name: str) -> str:
         return "L2 update K4"
     if "pgd_linf" in n:
         return "L∞ update K5"
-    # cuDNN's FFT algorithms run complex (float2 / cf32) gemm and gemv kernels
+    # cuDNN's FFT algorithms run complex (float2 / cf32) gemm and gemv kernels;
+    # its bf16 convolutions run on NHWC copies of the NCHW tensors, which it
+    # makes and undoes itself (nchwToNhwc, nhwcToNchw)
     if any(s in n for s in ("conv", "dgrad", "fprop", "wgrad", "implicit", "winograd", "fft",
-                            "cf32", "float2")):
+                            "cf32", "float2", "nchwtonhwc", "nhwctonchw")):
         return "convolution (cuDNN)"
-    if any(s in n for s in ("gemm", "cutlass", "xmma", "cublas")):
+    # cuBLAS's Hopper kernels are named nvjet_*
+    if any(s in n for s in ("gemm", "cutlass", "xmma", "cublas", "nvjet")):
         return "matmul (cuBLAS)"
-    if "norm" in n:
+    # group norm's statistics (RowwiseMoments) and its fused backward parameters
+    if any(s in n for s in ("norm", "rowwisemoments", "fusedparams", "internalgradients")):
         return "group/layer norm"
     return "elementwise and other"
 
@@ -918,10 +945,12 @@ def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict, model=N
                 for kern in kernels}
     require(launches == expected, (cfg.attack_mode, launches, expected))
 
+    # the images as the attack holds them (in cfg.dtype)
     src = torch.from_numpy(load_image(cfg.source_image_path, cfg.image_size)).cuda()
     tgt = torch.from_numpy(load_image(cfg.target_image_path, cfg.image_size)).cuda()
+    src, tgt = src.to(result.x_adv.dtype), tgt.to(result.x_adv.dtype)
     if cfg.norm_type == "l2":
-        dist = torch.linalg.vector_norm(result.x_adv - src).item()
+        dist = torch.linalg.vector_norm(result.x_adv.float() - src.float()).item()
         require(dist <= cfg.eps + 1e-3, f"|x_adv - src|_2 = {dist} over eps")
     else:
         dist = (result.x_adv - src).abs().max().item()
@@ -1303,6 +1332,105 @@ def unet_long_attentions(unet_cfg, image_size: int) -> int:
     return count
 
 
+def pgd_launches(unet_cfg, cfg, unet_steps: int) -> dict:
+    """K1-K4 launches of one PGD iteration of ``cfg``'s diffusion path: the
+    shared encode, and per rep ``unet_steps`` UNet calls with
+    :func:`unet_long_attentions` long self-attentions each and one decode,
+    all forward and backward, and one update.  Under a remat policy every
+    UNet forward runs again in the backward (the checkpoint's recompute),
+    under ``remat_vae`` the encode's and each decode's too."""
+    unet = unet_steps * unet_long_attentions(unet_cfg, cfg.image_size)
+    unet_fwd = 1 if cfg.remat_policy == "none" else 2
+    vae_fwd = 2 if cfg.remat_vae else 1
+    fwd = cfg.grad_reps * (unet_fwd * unet + vae_fwd) + vae_fwd
+    bwd = cfg.grad_reps * (unet + 1) + 1
+    return {"tid_flash_fwd": fwd, "tid_flash_bwd_kv": bwd, "tid_flash_bwd_q": bwd,
+            "tid_pgd_l2_update": 1}
+
+
+def path_flops(family: str, cfg, unet_steps: int, n_iterations: int, seconds: float,
+               dtype) -> dict:
+    """Useful model FLOPs of one iteration of an immunize path
+    (``utils/flops.py``, counted on a ``meta`` build with the plain
+    attention) and their share of the card's peak for ``dtype`` over the
+    path's s/iteration.  The interval that s/iteration measures holds
+    ``n_iterations - 1`` iterations and one vis decode (a forward), so each
+    iteration carries its share of that decode.  The inpaint path encodes
+    the image in every rep."""
+    from tml_image_editing_defense_torch.utils import flops
+
+    fwd = flops.diffusion_model_flops(family, cfg.image_size)
+    image_loss = cfg.apply_loss_on_images or cfg.perturbation_loss_lambda > 0
+    if cfg.attack_mode == "inpaint":
+        per_rep = fwd["vae_encode"] + unet_steps * fwd["unet"] + image_loss * fwd["vae_decode"]
+        step = cfg.grad_reps * flops.input_grad_flops(per_rep)
+    else:
+        step = flops.pgd_step_model_flops(unet_steps * fwd["unet"], fwd["vae_encode"],
+                                          fwd["vae_decode"], cfg.grad_reps, image_loss)
+    return flops_share(fwd, step + fwd["vae_decode"] / (n_iterations - 1), seconds, dtype)
+
+
+def flops_share(forward: dict, work: float, seconds: float, dtype) -> dict:
+    """``work`` useful FLOPs done in ``seconds`` as a share of the card's
+    peak for ``dtype`` (``utils.flops.mfu``), beside the forward counts it
+    came from."""
+    from tml_image_editing_defense_torch.utils import flops
+
+    return {"forward_flops": forward, "iteration_flops": work, "seconds": seconds,
+            "dtype": str(dtype).split(".")[-1], "peak_flops": flops.device_peak_flops(dtype=dtype),
+            "share_of_peak": flops.mfu(work, seconds, dtype=dtype)}
+
+
+def universal_flops(family: str, size: int, preset: str, reps: int, seconds: float) -> dict:
+    """Useful FLOPs of one universal step (f32): per rep the encode, one UNet
+    call for the CFG pair and the TAESD preview's decode, each forward and
+    input backward, counted on ``meta`` builds; their share of the f32 peak
+    over the step's seconds."""
+    import torch
+
+    from tml_image_editing_defense_torch.models.tiny_vae import build_tiny_autoencoder
+    from tml_image_editing_defense_torch.utils import flops
+
+    fwd = flops.diffusion_model_flops(family, size)
+    preview = build_tiny_autoencoder(preset, device="meta")
+    fwd["preview_decode"] = flops.count_fn_flops(
+        preview.decode, torch.zeros((1, 4, size // 8, size // 8), device="meta"))
+    work = reps * flops.input_grad_flops(fwd["vae_encode"] + fwd["unet"] + fwd["preview_decode"])
+    return flops_share(fwd, work, seconds, torch.float32)
+
+
+def iteration_gate(model, cfg, inputs, changes: dict, tol: float = 1e-3) -> dict:
+    """One PGD iteration of ``cfg`` on the card twice on the same draws, as
+    it is and with ``changes`` (a remat policy, an EOT chunk): the iterates
+    within ``tol`` (cuDNN's convolution gradients are not deterministic,
+    so not bit for bit), with each one's seconds (CUDA events) and peak
+    memory above what was allocated before it."""
+    import dataclasses
+
+    import torch
+
+    from tml_image_editing_defense_torch.attack.pgd import make_pgd_step
+    from tml_image_editing_defense_torch.utils.profiling import StepTimer, device_memory_stats
+
+    sampler, plan, data, draws = inputs
+    out, iterates = {"changes": changes}, {}
+    for tag, c in (("as_is", cfg), ("changed", dataclasses.replace(cfg, **changes))):
+        before = device_memory_stats()["bytes_in_use"]
+        torch.cuda.reset_peak_memory_stats()
+        timer = StepTimer("cuda")
+        with timer:
+            x, aux = make_pgd_step(model, sampler, plan, c, decode_vis=False)(data.source, data,
+                                                                              draws)
+        iterates[tag] = x
+        out[tag] = {"s": timer.last, "avg_loss": aux["avg_loss"].item(),
+                    "peak_gb": (device_memory_stats()["peak_bytes_in_use"] - before) / 1e9}
+    out["x_adv_max_abs_diff"] = max_err(iterates["as_is"], iterates["changed"])
+    out["avg_loss_rel_diff"] = (abs(out["as_is"]["avg_loss"] - out["changed"]["avg_loss"])
+                                / abs(out["as_is"]["avg_loss"]))
+    require(out["x_adv_max_abs_diff"] <= tol, f"one PGD iteration with {changes}: {out}")
+    return out
+
+
 def sdxl_eval_images(tmp: Path, eps: float) -> dict:
     """A synthetic SDXL_EVAL_SIZE source and target, and an adversarial PNG
     made from the source with a seeded Gaussian perturbation of L2 norm
@@ -1595,6 +1723,16 @@ def print_profile(tag: str, prof: dict) -> None:
         print(f"[profile]   {ms:9.1f} ms  {name[:110]}")
 
 
+def print_flops(tag: str, fl: dict, unit: str = "iteration") -> None:
+    share = fl["share_of_peak"]
+    print(f"[flops] {tag}: forward TFLOP "
+          + ", ".join(f"{k} {v / 1e12:.3f}" for k, v in fl["forward_flops"].items())
+          + f"; one {unit} {fl['iteration_flops'] / 1e12:.2f} TFLOP of useful work in "
+          f"{fl['seconds']:.2f} s: " + (f"{share:.1%}" if share is not None else "not known")
+          + f" of the {fl['dtype']} peak ({(fl['peak_flops'] or 0) / 1e12:.0f} TFLOP/s)",
+          flush=True)
+
+
 def free_card(held: Optional[dict] = None, after: str = "") -> None:
     """Drop what nothing references; with ``held``, record there what stays
     allocated ``after`` a path, which must be under HELD_LIMIT_GB."""
@@ -1631,10 +1769,12 @@ def main(argv) -> int:
     from tml_image_editing_defense_torch.core.samplers import LCMSampler
     from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
     from tml_image_editing_defense_torch.models import layers
+    from tml_image_editing_defense_torch.models.model_zoo import build_model
     from tml_image_editing_defense_torch.models.unet import SD15_UNET, SDXL_UNET
     from tml_image_editing_defense_torch.ops import _lib
     from tml_image_editing_defense_torch.ops import flash_attention as fa
     from tml_image_editing_defense_torch.ops import pgd_kernels as pk
+    from tml_image_editing_defense_torch.utils import flops
     from tml_image_editing_defense_torch.utils.device import numerics_summary, set_numerics
 
     report = {}
@@ -1660,7 +1800,8 @@ def main(argv) -> int:
                           (EVAL_UNET_SHAPE, (torch.float32,)), (EVAL_VAE_SHAPE, (torch.float32,)),
                           (SDXL_EVAL_UNET_SHAPE, (torch.float32,)),
                           (SDXL_EVAL_VAE_SHAPE, (torch.float32,)),
-                          (UX_UNET_SHAPE, (torch.float32,)), (UX_VAE_SHAPE, (torch.float32,))):
+                          (UX_UNET_SHAPE, (torch.float32, torch.bfloat16)),
+                          (UX_VAE_SHAPE, (torch.float32, torch.bfloat16))):
         for dtype in dtypes:
             r = check_flash(fa, shape, dtype, gen, times=True)
             flash[f"{shape}-{r['dtype']}"] = r
@@ -1670,6 +1811,7 @@ def main(argv) -> int:
                   + "; plain ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["plain_ms"].items())
                   + f"; bound ms at {r['peak_tflops']:.0f} TFLOP/s "
                   + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in r["bound"].items())
+                  + "; device ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["device_ms"].items())
                   + "; sdpa ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["library_ms"].items())
                   + f"; K1 {r['ms']['fwd']:.3f} ms against SDPA's forward "
                   f"{r['library_ms']['fwd']:.3f} ms ({r['ms']['fwd'] / r['library_ms']['fwd']:.2f}x)"
@@ -1730,6 +1872,21 @@ def main(argv) -> int:
               f"update: {report['iteration_vs_plain']}", flush=True)
         report["profile"] = profile_iteration(result.model, cfg, inputs)
         print_profile("PGD iteration", report["profile"])
+        d_steps = LCMSampler(make_noise_schedule()).plan(
+            cfg.n_denoising_steps_per_iteration, limit_t=700).num_steps
+        report["main_path"]["flops"] = fl = path_flops(
+            "sd15", cfg, d_steps, ITERATIONS, diff["s_per_iteration_after_first"], torch.float32)
+        print_flops("diffusion", fl)
+        # the remat policies and the EOT chunk change where memory and time
+        # go, not the math: path d's first iteration each way on the same draws
+        for name, changes in (("remat", dict(remat_policy="full", remat_vae=True)),
+                              ("eot_chunk", dict(eot_chunk=2))):
+            g = report[f"{name}_gate"] = iteration_gate(result.model, cfg, inputs, changes)
+            print(f"[gate] one SD-1.5 512x512 PGD iteration, {changes} against the defaults on "
+                  f"the same draws: |x_adv diff|_max = {g['x_adv_max_abs_diff']:.2e} <= 1e-3, "
+                  f"avg_loss {g['avg_loss_rel_diff']:.1e} relative; defaults "
+                  f"{g['as_is']['s']:.2f} s, peak {g['as_is']['peak_gb']:.2f} GB; changed "
+                  f"{g['changed']['s']:.2f} s, peak {g['changed']['peak_gb']:.2f} GB", flush=True)
         del inputs
         free_card()
 
@@ -1835,6 +1992,10 @@ def main(argv) -> int:
               f"and plain update: {report['inpaint_vs_plain']}", flush=True)
         report["inpaint_profile"] = profile_iteration(result.model, icfg, inputs)
         print_profile("inpaint iteration", report["inpaint_profile"])
+        report["inpaint_path"]["flops"] = fl = path_flops(
+            "sd15-inpaint", icfg, n_unet, ITERATIONS, inpaint["s_per_iteration_after_first"],
+            torch.float32)
+        print_flops("inpaint", fl)
         del result, inputs, src, tgt
         free_card(held, "inpaint")
 
@@ -1860,6 +2021,14 @@ def main(argv) -> int:
               f"in all (model build included); peak {ev['max_memory_allocated_gb']:.2f} GB "
               f"above the {ev['allocated_before_gb']:.2f} GB allocated before; launches {ev['launches']} "
               f"(K1 {ev['k1_launches_at_shape']})", flush=True)
+        # a batch: the UNet calls for EVAL_BATCH (clean, adv) pairs with CFG,
+        # and the encodes and decodes of its 2 * EVAL_BATCH images, forward only
+        fwd = flops.diffusion_model_flops("sd15", 512, unet_batch=4 * EVAL_BATCH)
+        ev["flops"] = fl = flops_share(
+            fwd, ev["unet_steps"] * fwd["unet"]
+            + 2 * EVAL_BATCH * (fwd["vae_encode"] + fwd["vae_decode"]),
+            sum(ev["dispatch_s"]) / len(ev["dispatch_s"]), torch.float32)
+        print_flops("evaluate", fl, unit="batch")
         free_card(held, "evaluate")
         report["eval_profile"] = profile_eval_batch(
             Image.open(source).convert("RGB"),
@@ -1895,6 +2064,9 @@ def main(argv) -> int:
               f"update: {report['sdxl_vs_plain']}", flush=True)
         report["sdxl_profile"] = profile_iteration(result.model, xcfg, inputs)
         print_profile("SDXL PGD iteration", report["sdxl_profile"])
+        report["sdxl_path"]["flops"] = fl = path_flops(
+            "sdxl", xcfg, d_steps, ITERATIONS, xl["s_per_iteration_after_first"], torch.float32)
+        print_flops("sdxl", fl)
         del inputs, src, tgt
         free_card()
         xl_images = sdxl_eval_images(tmp, xcfg.eps)
@@ -1954,6 +2126,9 @@ def main(argv) -> int:
         inputs[0](*inputs[1:])                  # warm-up of the profiled step
         report["universal_profile"] = prof = profile_call(lambda: inputs[0](*inputs[1:]))
         print_profile("universal step", prof)
+        uni["flops"] = fl = universal_flops("sd15", 512, "taesd", run.cfg.grad_reps,
+                                            uni["s_per_step_after_first"])
+        print_flops("universal", fl, unit="step")
         dec = report["universal_decoders"] = decoder_costs(run)
         reps = run.cfg.grad_reps
         print(f"[universal] decode forward + backward at {dec['latent_shape']}: TAESD "
@@ -1985,12 +2160,86 @@ def main(argv) -> int:
               + ", ".join(f"{v:.5f}" for v in uxr["move_l2"]) + f"; |pert|_inf "
               f"{uxr['pert_max']:.4f}; launches {uxr['launches']} ({uxr['launches_at_shape']})",
               flush=True)
+        uxr["flops"] = fl = universal_flops("sdxl", uxr["image_size"], "taesdxl",
+                                            run.cfg.grad_reps, uxr["s_per_step_after_first"])
+        print_flops("universal-sdxl", fl, unit="step")
         # the path ran these shapes just before: no warm-up
         inputs = universal_step_inputs(universal, run)
         report["universal_sdxl_profile"] = profile_call(lambda: inputs[0](*inputs[1:]))
         print_profile("SDXL 1024x1024 universal step (remat full)", report["universal_sdxl_profile"])
         del run, inputs
         free_card(held, "universal-sdxl")
+
+        # ---- SDXL immunize at 1024x1024 in bf16 (xl1k) -----------------------
+        # The JAX package's configuration (scripts/probe_sdxl_1024.py:134-140):
+        # bf16, remat "full" with remat_vae, the L2 preset (10 reps, LCM K=4
+        # with t < 700: 2 UNet steps).  Per iteration (pgd_launches): each
+        # rep's 2 UNet calls run the 10 long self-attentions of the 64x64
+        # level, K1 twice (the step's recompute) and K2, K3 once each; the
+        # shared encode and each rep's decode K1 twice (remat_vae) and K2, K3
+        # once; K4 once.  Outside: the target encode and 2 vis decodes.
+        x1t0 = time.perf_counter()
+        x1cfg = TrainConfig(source_image_path=xl_images["paths"]["source"],
+                            target_image_path=xl_images["paths"]["target"],
+                            output_path=tmp / "out_sdxl_1024",
+                            n_optimization_steps=XL1K_ITERATIONS, use_sdxl=True,
+                            image_size=XL1K_SIZE, dtype="bfloat16", remat_policy="full",
+                            remat_vae=True)
+        x1_per_it = pgd_launches(SDXL_UNET, x1cfg, d_steps)
+        x1 = immunize_path(api, x1cfg, kernels, x1_per_it,
+                           {"tid_flash_fwd": 1 + len({0, XL1K_ITERATIONS - 1})})
+        result, src, tgt = x1.pop("_result"), x1.pop("_src"), x1.pop("_tgt")
+        x1["per_iteration_launches"] = x1_per_it
+        # by shape: the UNet's (forward twice under remat "full") and the VAE's
+        # (the shared encode and each rep's decode, twice under remat_vae;
+        # the target encode and the vis decodes once)
+        unet_n = XL1K_ITERATIONS * x1cfg.grad_reps * d_steps * unet_long_attentions(SDXL_UNET,
+                                                                                    XL1K_SIZE)
+        vae_n = XL1K_ITERATIONS * (x1cfg.grad_reps + 1)
+        x1["launches_at_shape"] = {
+            "unet": {"tid_flash_fwd": 2 * unet_n, "tid_flash_bwd_kv": unet_n,
+                     "tid_flash_bwd_q": unet_n},
+            "vae": {"tid_flash_fwd": 2 * vae_n + 1 + len({0, XL1K_ITERATIONS - 1}),
+                    "tid_flash_bwd_kv": vae_n, "tid_flash_bwd_q": vae_n}}
+        require(all(x1["launches_at_shape"]["unet"][k] + x1["launches_at_shape"]["vae"][k]
+                    == x1["launches"][k] for k in x1["launches_at_shape"]["unet"]),
+                ("sdxl-1024 launches by shape", x1["launches_at_shape"], x1["launches"]))
+        report["sdxl_1024_path"] = x1
+        print(f"[sdxl-1024] immunize sdxl {XL1K_SIZE}x{XL1K_SIZE} bf16, remat full + remat_vae, "
+              f"{XL1K_ITERATIONS} iterations x {x1cfg.grad_reps} reps: {x1['wall_s']:.1f} s in "
+              f"all (model build included), {x1['s_per_iteration_after_first']:.2f} s for the "
+              f"second iteration, peak {x1['max_memory_allocated_gb']:.2f} GB above the "
+              f"{x1['allocated_before_gb']:.2f} GB allocated before (the model built in the "
+              f"path); losses {[round(h['avg_loss'], 4) for h in x1['history']]}; |x_adv - "
+              f"src|_2 = {x1['dist']:.3f} <= {x1cfg.eps}; launches per iteration {x1_per_it} "
+              f"(predicted from the UNet config, the VAE mid-blocks and the remat recompute), "
+              f"in all {x1['launches']}", flush=True)
+        inputs = one_iteration_inputs(result.model, x1cfg, src, tgt)
+        report["sdxl_1024_profile"] = profile_iteration(result.model, x1cfg, inputs)
+        print_profile("SDXL 1024x1024 bf16 PGD iteration (remat full, remat_vae)",
+                      report["sdxl_1024_profile"])
+        x1["flops"] = fl = path_flops("sdxl", x1cfg, d_steps, XL1K_ITERATIONS,
+                                      x1["s_per_iteration_after_first"], torch.bfloat16)
+        print_flops("sdxl-1024", fl)
+        del result, inputs
+        free_card(held, "sdxl-1024")
+        # the kernels against plain attention at 1024x1024, in f32 (the other
+        # paths' tolerance): one iteration of 1 rep on an f32 SDXL, same remat
+        gcfg = dataclasses.replace(x1cfg, dtype="float32", derive_norm_hyperparams=False,
+                                   grad_reps=1, output_path=tmp / "out_sdxl_1024_gate")
+        gmodel = build_model("sdxl", image_size=XL1K_SIZE, device="cuda", dtype="float32",
+                             generator=torch.Generator(device="cuda").manual_seed(gcfg.seed),
+                             attn_kv_chunk=api._train_attn_chunk(XL1K_SIZE))
+        inputs = one_iteration_inputs(gmodel, gcfg, src.float(), tgt.float())
+        report["sdxl_1024_vs_plain"] = check_iteration_against_plain(gmodel, gcfg, inputs, layers)
+        print(f"[model] one SDXL {XL1K_SIZE}x{XL1K_SIZE} f32 PGD iteration of 1 rep (remat full, "
+              f"remat_vae), kernels vs plain attention and plain update: "
+              f"{report['sdxl_1024_vs_plain']}", flush=True)
+        del gmodel, inputs, src, tgt
+        free_card(held, "sdxl-1024-gate")
+        x1["phase_s"] = time.perf_counter() - x1t0
+        print(f"[sdxl-1024] phase xl1k in {x1['phase_s']:.1f} s (immunize, the profile, the f32 "
+              f"gate)", flush=True)
         print("[memory] GB allocated on the card after each path: "
               + ", ".join(f"{k} {v:.3f}" for k, v in held.items())
               + f" (limit {HELD_LIMIT_GB})", flush=True)
@@ -2032,17 +2281,20 @@ def kernel_rows(flash, updates, report) -> list:
                 "sdxl": report["sdxl_path"]["launches"],
                 "sdxl-evaluate": report["sdxl_evaluate_path"]["launches"],
                 "universal": report["universal_path"]["launches"],
-                "universal-sdxl": report["universal_sdxl_path"]["launches"]}
+                "universal-sdxl": report["universal_sdxl_path"]["launches"],
+                "sdxl-1024": report["sdxl_1024_path"]["launches"]}
     by_path = lambda sym: {path: counts[sym] for path, counts in launches.items()}  # noqa: E731
     at_shape = {(path, shape): report[f"{path.replace('-', '_')}_path"]["k1_launches_at_shape"][part]
                 for path, (unet, vae) in (("evaluate", (EVAL_UNET_SHAPE, EVAL_VAE_SHAPE)),
                                           ("sdxl-evaluate", (SDXL_EVAL_UNET_SHAPE,
                                                              SDXL_EVAL_VAE_SHAPE)))
                 for part, shape in (("unet", unet), ("vae", vae))}
-    # the universal paths run forward and backward: launches at each shape by kernel
+    # the universal paths and xl1k run forward and backward: launches at each
+    # shape by kernel
     by_shape = {(path, shape): report[f"{path.replace('-', '_')}_path"]["launches_at_shape"][part]
                 for path, (unet, vae) in (("universal", (UNET_SHAPE, VAE_SHAPE)),
-                                          ("universal-sdxl", (UX_UNET_SHAPE, UX_VAE_SHAPE)))
+                                          ("universal-sdxl", (UX_UNET_SHAPE, UX_VAE_SHAPE)),
+                                          ("sdxl-1024", (UX_UNET_SHAPE, UX_VAE_SHAPE)))
                 for part, shape in (("unet", unet), ("vae", vae))}
     rows = []
     for path, shape in (("diffusion", UNET_SHAPE), ("inpaint", UNET_SHAPE),
@@ -2050,7 +2302,8 @@ def kernel_rows(flash, updates, report) -> list:
                         ("evaluate", EVAL_VAE_SHAPE), ("sdxl", VAE_SHAPE),
                         ("sdxl-evaluate", SDXL_EVAL_UNET_SHAPE),
                         ("sdxl-evaluate", SDXL_EVAL_VAE_SHAPE), *by_shape):
-        r = flash[f"{shape}-float32"]
+        dtype = "bfloat16" if path == "sdxl-1024" else "float32"
+        r = flash[f"{shape}-{dtype}"]
         for name, sym, key, line in (("flash_fwd", "tid_flash_fwd", "fwd", 69),
                                      ("flash_bwd_kv", "tid_flash_bwd_kv", "bwd_kv", 148),
                                      ("flash_bwd_q", "tid_flash_bwd_q", "bwd_q", 185)):
@@ -2067,15 +2320,16 @@ def kernel_rows(flash, updates, report) -> list:
                 "library_call": (f"scaled_dot_product_attention forward "
                                  f"({r['library_backend']['backend']} backend)" if key == "fwd"
                                  else "scaled_dot_product_attention backward: K2 and K3 together"),
-                "path": path, "shape": list(shape), "dtype": "float32", "ok": True,
+                "path": path, "shape": list(shape), "dtype": dtype, "ok": True,
             }
             if (path, shape) in at_shape:
                 row["launches_at_shape"] = at_shape[(path, shape)]
             if (path, shape) in by_shape:
                 row["launches_at_shape"] = by_shape[(path, shape)][sym]
             rows.append(row)
-    update_rows = [("pgd_l2_update", path, "tid_pgd_l2_update", 118, updates["l2"]["f32"])
-                   for path in ("diffusion", "sdxl")]
+    update_rows = [("pgd_l2_update", path, "tid_pgd_l2_update", 118, updates["l2"][key])
+                   for path, key in (("diffusion", "f32"), ("sdxl", "f32"),
+                                     ("sdxl-1024", "bf16-1024"))]
     update_rows += [("pgd_linf_update", path, "tid_pgd_linf_update", 64,
                      updates["linf"][f"{shape}-float32"])
                     for path, shape in (("inpaint", IMAGE_SHAPE), ("encoder", ENC_IMAGE_SHAPE))]
@@ -2089,7 +2343,7 @@ def kernel_rows(flash, updates, report) -> list:
             "max_abs_err": r["err"], "ms": r["host_call_ms"],
             "device_ms": r["device"]["ms"], "device_cold_ms": r["device_cold"]["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": None, "path": path, "shape": r["shape"], "dtype": "float32",
+            "library_ms": None, "path": path, "shape": r["shape"], "dtype": r["dtype"],
             "ok": True,
         })
     return rows

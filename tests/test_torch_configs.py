@@ -10,9 +10,8 @@ from tml_image_editing_defense_tpu import configs as jc
 
 from tml_image_editing_defense_torch import configs as pc
 
-#: TPU-program knobs the port drops (configs.py docstring says why).
-DROPPED = {"eot_mode", "eot_chunk", "eot_shards", "remat_policy", "remat_vae",
-           "unroll_denoise", "dispatch_block"}
+#: XLA-program knobs the port drops (configs.py docstring says why).
+DROPPED = {"unroll_denoise", "dispatch_block"}
 
 
 def _defaults(cls):

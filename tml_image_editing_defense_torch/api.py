@@ -37,7 +37,7 @@ from tml_image_editing_defense_torch.attack.inpaint import (
     make_inpaint_pgd_step,
     sample_inpaint_draws,
 )
-from tml_image_editing_defense_torch.attack.pgd import make_attack_data, run_pgd
+from tml_image_editing_defense_torch.attack.pgd import eot_chunk_size, make_attack_data, run_pgd
 from tml_image_editing_defense_torch.configs import (
     INFERENCE_PROMPTS,
     InferenceConfig,
@@ -137,6 +137,13 @@ def _check_supported(cfg: TrainConfig) -> None:
     if cfg.attack_mode not in ("diffusion", "inpaint"):
         raise ValueError(f"unknown attack_mode {cfg.attack_mode!r}")
     _refuse_later(cfg)
+    if cfg.eot_shards not in (None, 1):
+        raise NotImplementedError(f"eot_shards={cfg.eot_shards} comes with the multi-GPU slice "
+                                  "of the port (one card: None or 1)")
+    if cfg.attack_mode == "diffusion":
+        # eot_mode "shard" and an eot_chunk that does not divide the reps
+        # are refused before a model is built
+        eot_chunk_size(cfg)
 
 
 def immunize(
@@ -171,7 +178,15 @@ def immunize(
     computes the mask again; the state does not hold it.
     ``add_image_caption_to_prompts`` prefixes the prompts with the source's
     BLIP-2 caption (``caption_model_path``) unless
-    ``default_source_image_caption`` is set."""
+    ``default_source_image_caption`` is set.
+
+    The attack step's knobs reach the step through ``cfg``:
+    ``remat_policy`` and ``remat_vae`` (what the backward recomputes),
+    ``eot_chunk`` and ``eot_mode`` (reps batched through the chain);
+    ``eot_shards`` above 1 and ``eot_mode="shard"`` wait for the multi-GPU
+    slice.  SDXL at its native 1024x1024 trains with
+    ``TrainConfig(use_sdxl=True, image_size=1024, dtype="bfloat16",
+    remat_policy="full", remat_vae=True)``, as the JAX package runs it."""
     _check_supported(cfg)
     device = resolve_device(device)
     dtype = set_numerics(cfg.dtype)

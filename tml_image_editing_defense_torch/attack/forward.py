@@ -5,7 +5,8 @@ Noise-add, then K CFG UNet steps as a Python loop over the plan (reference
 pool noise and the per-step LCM noise -- is an argument.
 
 :func:`apply_remat` wraps a stage in activation checkpointing by the JAX
-package's policy names (``_REMAT_POLICIES``, forward.py:72-98 there).
+package's policy names (``_REMAT_POLICIES``, forward.py:72-98 there); the
+chain wraps each denoising step in it.
 """
 
 from __future__ import annotations
@@ -71,6 +72,24 @@ def select_cond(bank_embeds: torch.Tensor, bank_uncond: torch.Tensor, prompt_idx
                       time_ids=time_ids)
 
 
+def stack_cond(conds: Sequence[CondInputs]) -> CondInputs:
+    """The CFG conditioning of reps run as one batch of c: the c
+    unconditional rows, then the c conditional ones, as the chain splits
+    the UNet's output (the batched counterpart of JAX's ``vmap`` over reps,
+    attack/pgd.py:330-337 there)."""
+    if len(conds) == 1:
+        return conds[0]
+
+    def cat(parts):
+        if parts[0] is None:
+            return None
+        return torch.cat([p[:1] for p in parts] + [p[1:] for p in parts])
+
+    return CondInputs(ctx=cat([c.ctx for c in conds]),
+                      text_embeds=cat([c.text_embeds for c in conds]),
+                      time_ids=cat([c.time_ids for c in conds]))
+
+
 def denoise_chain(
     model: DiffusionModel,
     sampler: BaseSampler,
@@ -80,26 +99,38 @@ def denoise_chain(
     guidance_scale: float,
     step_noise: Optional[Sequence[torch.Tensor]],   # row i: step i's draw
     extra_channels: Optional[torch.Tensor] = None,  # [2B, C', h, w], appended to the input
+    remat_policy: str = "none",
 ) -> torch.Tensor:
     """K CFG denoising steps (reference loop main.py:229-243), the sampler's
     carry threaded through.  Row i of ``step_noise`` ([K, B, C, h, w], or
     [K, C, h, w] for one draw shared by the batch) is broadcast to the
     latent's shape; it may be None for a sampler that draws nothing.
     ``extra_channels`` are concatenated after the scaled latent on every
-    step: the inpaint UNet's mask and masked-image latent."""
+    step: the inpaint UNet's mask and masked-image latent.
+
+    Each step's body (the CFG UNet call, the guidance and the sampler step)
+    runs under :func:`apply_remat` by ``remat_policy``, its latent and
+    carry passed as tensors (JAX forward.py:135-150).  Where no gradient is
+    recorded (the evaluation pipelines) no checkpoint is paid."""
     x = latents
     b = x.shape[0]
     carry = sampler.init_carry(x.shape, x.dtype, x.device)
+    policy = remat_policy if torch.is_grad_enabled() else "none"
     for i in range(plan.num_steps):
-        latent_in = sampler.scale_model_input(plan, i, torch.cat([x, x], dim=0))
-        if extra_channels is not None:
-            latent_in = torch.cat([latent_in, extra_channels], dim=1)
-        eps = model.apply_unet(latent_in, int(plan.t_eval[i]), cond.ctx, cond.text_embeds,
-                               cond.time_ids)
-        eps_uncond, eps_text = eps[:b], eps[b:]
-        guided = eps_uncond + guidance_scale * (eps_text - eps_uncond)
         noise = step_noise[i].expand_as(x) if sampler.uses_step_noise else None
-        x, carry = sampler.step(plan, i, carry, guided, x, noise)
+
+        def body(x, *carry, i=i, noise=noise):
+            latent_in = sampler.scale_model_input(plan, i, torch.cat([x, x], dim=0))
+            if extra_channels is not None:
+                latent_in = torch.cat([latent_in, extra_channels], dim=1)
+            eps = model.apply_unet(latent_in, int(plan.t_eval[i]), cond.ctx, cond.text_embeds,
+                                   cond.time_ids)
+            eps_uncond, eps_text = eps[:b], eps[b:]
+            guided = eps_uncond + guidance_scale * (eps_text - eps_uncond)
+            x, carry = sampler.step(plan, i, carry, guided, x, noise)
+            return (x, *carry)
+
+        x, *carry = apply_remat(body, policy)(x, *carry)
     return x
 
 
@@ -107,16 +138,18 @@ def attack_forward_from_latent(
     model: DiffusionModel,
     sampler: BaseSampler,
     plan: DenoisePlan,
-    z_scaled: torch.Tensor,            # [1, C, h, w], scaled VAE latent
+    z_scaled: torch.Tensor,            # [B, C, h, w], scaled VAE latent
     cond: CondInputs,
-    init_noise: torch.Tensor,          # [1, C, h, w], the selected pool entry
+    init_noise: torch.Tensor,          # [B, C, h, w], the selected pool entries
     guidance_scale: float,
     step_noise: Optional[Sequence[torch.Tensor]],
+    remat_policy: str = "none",
 ) -> torch.Tensor:
-    """Post-encode tail of the chain: noise-add, K-step denoise, unscale
-    (main.py:194-245)."""
+    """Post-encode tail of the chain: noise-add, K-step denoise (each step
+    under ``remat_policy``), unscale (main.py:194-245)."""
     x = sampler.add_noise(plan, z_scaled, init_noise)
-    x = denoise_chain(model, sampler, plan, x, cond, guidance_scale, step_noise)
+    x = denoise_chain(model, sampler, plan, x, cond, guidance_scale, step_noise,
+                      remat_policy=remat_policy)
     return x / model.vae_scaling
 
 

@@ -46,17 +46,20 @@ def inpaint_attack_forward(
     latents: torch.Tensor,             # [1, C, h, w] fresh initial latents
     vae_eps: torch.Tensor,             # [1, C, h, w] posterior noise
     step_noise: Optional[Sequence[torch.Tensor]],   # [K, C, h, w]
+    remat_policy: str = "none",
 ) -> torch.Tensor:
     """image -> unscaled output latent through the inpaint denoising chain
-    (JAX inpaint.py:33-89), under an all-ones mask.  An Euler plan scales
-    the fresh latents by its initial sigma, as the JAX forward does."""
+    (JAX inpaint.py:33-89), under an all-ones mask, each step under
+    ``remat_policy``.  An Euler plan scales the fresh latents by its
+    initial sigma, as the JAX forward does."""
     if plan.kind == "euler":
         latents = latents * plan.init_sigma
     masked_image_latents = model.encode_image(image, vae_eps)
     mask_latent = torch.ones((1, 1, *latents.shape[-2:]), dtype=image.dtype, device=image.device)
     # the CFG halves of the conditioning channels, built once (:94-97)
     extra = torch.cat([mask_latent, masked_image_latents], dim=1).repeat(2, 1, 1, 1)
-    x = denoise_chain(model, sampler, plan, latents, cond, guidance_scale, step_noise, extra)
+    x = denoise_chain(model, sampler, plan, latents, cond, guidance_scale, step_noise, extra,
+                      remat_policy)
     return x / model.vae_scaling
 
 
@@ -78,8 +81,9 @@ def sample_inpaint_draws(generator: torch.Generator, cfg: TrainConfig, n_prompts
 
 def make_inpaint_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
                           cfg: TrainConfig) -> Callable:
-    """EOT gradient over the inpaint forward, a prompt per rep
-    (JAX inpaint.py:92-159): ``eot(x_adv, data, draws) -> (grad, aux)``.
+    """EOT gradient over the inpaint forward, a prompt per rep, the chain
+    under ``cfg.remat_policy`` (JAX inpaint.py:92-159, :107):
+    ``eot(x_adv, data, draws) -> (grad, aux)``.
     ``aux`` holds the mean loss over reps and the last rep's rec/pert losses,
     output latent and prompt."""
     need_pixels = cfg.apply_loss_on_images or cfg.perturbation_loss_lambda > 0
@@ -88,7 +92,7 @@ def make_inpaint_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: Den
         cond = data.cond(draws.rep_prompt(r))
         out_latent = inpaint_attack_forward(
             model, sampler, plan, x_adv, cond, cfg.guidance_scale, draws.init_noise[r][None],
-            draws.vae_eps[r][None], draws.step_noise[r])
+            draws.vae_eps[r][None], draws.step_noise[r], cfg.remat_policy)
         out_image = model.decode_latent(out_latent, scaled=False) if need_pixels else None
         if cfg.apply_loss_on_images:
             rec = lp_distance(out_image, data.target, 2)

@@ -4,7 +4,9 @@
   ``main.py:248-276``, including ``torch.renorm``'s slice-wise projection.
 - :func:`make_eot_grad`: the ``grad_reps`` expectation over transformations
   (main.py:88-102) with the VAE encode run once and its backward applied once
-  to the rep-averaged posterior gradient, as the JAX version does.
+  to the rep-averaged posterior gradient, as the JAX version does; the reps
+  in batches of ``eot_chunk``, each denoising step under ``remat_policy``,
+  the encode and decodes under a checkpoint with ``remat_vae``.
 - :func:`_rep_loss_fn`: the per-rep loss that encodes the image itself, as
   the reference does every rep (main.py:191); the legacy loops use it.
 - :func:`make_pgd_step` and :func:`run_pgd`: one outer iteration, and the
@@ -26,12 +28,14 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tml_image_editing_defense_torch.attack.forward import (
     CondInputs,
     attack_forward_from_latent,
     make_time_ids,
     select_cond,
+    stack_cond,
 )
 from tml_image_editing_defense_torch.attack.losses import lp_distance, perturbation_loss
 from tml_image_editing_defense_torch.configs import TrainConfig
@@ -226,33 +230,53 @@ def iteration_generator(seed: int, iteration: int, device) -> torch.Generator:
 # ---------------------------------------------------------------------------
 
 
+def _vae_checkpoint(fn: Callable, remat_vae: bool) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` with ``remat_vae`` (its
+    activations recomputed in the backward, JAX ``jax.checkpoint``), else
+    as it is."""
+    if not remat_vae:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def _rep_loss_from_dist(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
                         cfg: TrainConfig):
-    """One EOT sample's loss as a function of the VAE posterior (mean,
-    logvar) (reference compute_grad, main.py:144-177)."""
-    need_pixels = cfg.apply_loss_on_images or cfg.perturbation_loss_lambda > 0
+    """The loss of EOT samples as a function of the VAE posterior (mean,
+    logvar) (reference compute_grad, main.py:144-177; JAX pgd.py:211-258).
 
-    def loss_fn(mean, logvar, data: AttackData, draws: EOTDraws, r: int):
+    ``loss_fn(mean, logvar, data, draws, rows) -> (losses, recs, perts,
+    out_latents)`` runs the reps ``rows`` (a range of rows of ``draws``)
+    through the chain as one batch, CFG doubling it; the outputs have one
+    row per rep.  The denoising steps run under
+    ``cfg.remat_policy``, the decode under a checkpoint with
+    ``cfg.remat_vae``."""
+    need_pixels = cfg.apply_loss_on_images or cfg.perturbation_loss_lambda > 0
+    decode = _vae_checkpoint(lambda z: model.decode_latent(z, scaled=False), cfg.remat_vae)
+
+    def loss_fn(mean, logvar, data: AttackData, draws: EOTDraws, rows: range):
+        sl = slice(rows.start, rows.stop)
         if draws.init_noise is not None:
-            noise = draws.init_noise[r][None]
+            noise = draws.init_noise[sl]
         else:
-            noise = data.noise_pool[draws.pool_idx[r]]
-        cond = data.cond(draws.rep_prompt(r))
-        z = sample_latent(mean, logvar, draws.vae_eps[r][None]) * model.vae_scaling
+            noise = torch.cat([data.noise_pool[draws.pool_idx[r]] for r in rows])
+        cond = stack_cond([data.cond(draws.rep_prompt(r)) for r in rows])
+        z = sample_latent(mean, logvar, draws.vae_eps[sl]) * model.vae_scaling
         out_latent = attack_forward_from_latent(
-            model, sampler, plan, z, cond, noise, cfg.guidance_scale, draws.step_noise[r])
-        output_image = model.decode_latent(out_latent, scaled=False) if need_pixels else None
+            model, sampler, plan, z, cond, noise, cfg.guidance_scale,
+            draws.step_noise[sl].transpose(0, 1), cfg.remat_policy)
+        output_image = decode(out_latent) if need_pixels else None
         if cfg.apply_loss_on_images:
-            rec = lp_distance(output_image, data.target, 2)
+            rec = torch.stack([lp_distance(o, data.target, 2) for o in output_image.split(1)])
         elif cfg.apply_loss_on_latents:
-            rec = lp_distance(out_latent, data.target_latent, 2)
+            rec = torch.stack([lp_distance(o, data.target_latent, 2)
+                               for o in out_latent.split(1)])
         else:
             raise ValueError("set apply_loss_on_images or apply_loss_on_latents")
         if cfg.perturbation_loss_lambda > 0:
-            pert = perturbation_loss(output_image, data.source)
+            pert = torch.stack([perturbation_loss(o, data.source) for o in output_image.split(1)])
             loss = cfg.rec_loss_lambda * rec + cfg.perturbation_loss_lambda * pert
         else:
-            pert = torch.zeros((), dtype=rec.dtype, device=rec.device)
+            pert = torch.zeros_like(rec)
             loss = cfg.rec_loss_lambda * rec
         return loss, rec, pert, out_latent
 
@@ -263,13 +287,15 @@ def _rep_loss_fn(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
                  cfg: TrainConfig):
     """One EOT sample's loss as a function of the image: the encode runs
     inside, once per rep (reference compute_grad, main.py:144-177; JAX
-    pgd.py:160-208).  ``loss_fn(x_adv, data, draws, r) -> (loss, rec, pert,
-    out_latent)``."""
+    pgd.py:160-208, the chain under ``cfg.remat_policy`` and the decode
+    under ``cfg.remat_vae``).  ``loss_fn(x_adv, data, draws, r) -> (loss,
+    rec, pert, out_latent)``."""
     from_dist = _rep_loss_from_dist(model, sampler, plan, cfg)
 
     def loss_fn(x_adv, data: AttackData, draws: EOTDraws, r: int):
         mean, logvar = model.vae.encode(x_adv)
-        return from_dist(mean, logvar, data, draws, r)
+        loss, rec, pert, out_latent = from_dist(mean, logvar, data, draws, range(r, r + 1))
+        return loss[0], rec[0], pert[0], out_latent
 
     return loss_fn
 
@@ -292,41 +318,62 @@ def rep_grad_mean(rep_loss: Callable, x_adv: torch.Tensor, reps: int):
     return gsum / reps, loss_sum / reps, [t.detach() for t in outputs]
 
 
+def eot_chunk_size(cfg: TrainConfig) -> int:
+    """Reps per batch through the chain: ``eot_chunk`` under "scan", all
+    of them under "vmap" (JAX pgd.py:316-328).  ``eot_chunk`` must divide
+    ``grad_reps``; "shard" (reps over cards) waits for the multi-GPU slice."""
+    if cfg.eot_mode == "vmap":
+        return cfg.grad_reps
+    if cfg.eot_mode == "shard":
+        raise NotImplementedError('eot_mode="shard" comes with the multi-GPU slice of the port')
+    if cfg.eot_mode != "scan":
+        raise ValueError(f"unknown eot_mode {cfg.eot_mode!r}; have 'scan', 'vmap', 'shard'")
+    chunk = max(int(cfg.eot_chunk), 1)
+    if cfg.grad_reps % chunk:
+        raise ValueError(f"eot_chunk={chunk} must divide grad_reps={cfg.grad_reps}")
+    return chunk
+
+
 def make_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
                   cfg: TrainConfig):
     """EOT gradient ``eot(x_adv, data, draws) -> (grad, aux)``: the mean over
     ``grad_reps`` samples (main.py:88-102), prompt drawn once per call.
 
-    The encode is shared: ``vae.encode(x_adv)`` runs once; each rep takes
-    its gradient with respect to detached copies of (mean, logvar), and the
-    rep-averaged gradient goes through the encoder's backward once.  Each
-    rep's graph is freed before the next one is built.  ``aux`` holds the
-    mean loss over reps and the last rep's rec/pert losses and output latent
-    (detached)."""
+    The encode is shared: ``vae.encode(x_adv)`` runs once (under a
+    checkpoint with ``cfg.remat_vae``, JAX pgd.py:310-314); the reps take
+    their gradient with respect to detached copies of (mean, logvar), and
+    the rep-averaged gradient goes through the encoder's backward once.  The
+    reps run in batches of :func:`eot_chunk_size`, rows ``r0 .. r0+c-1`` of
+    ``draws`` together; their losses are summed, so the mean gradient is the
+    one-at-a-time one.  Each batch's graph is freed before the next one is
+    built.  ``aux`` holds the mean loss over reps and the last rep's
+    rec/pert losses and output latent (detached), as JAX's ``a[-1]``."""
     loss_fn = _rep_loss_from_dist(model, sampler, plan, cfg)
     reps = cfg.grad_reps
+    chunk = eot_chunk_size(cfg)
+    encode = _vae_checkpoint(model.vae.encode, cfg.remat_vae)
 
     def eot(x_adv: torch.Tensor, data: AttackData, draws: EOTDraws):
         with torch.enable_grad():
             x = x_adv.detach().requires_grad_(True)
-            mean, logvar = model.vae.encode(x)
+            mean, logvar = encode(x)
             g_mean, g_logvar = torch.zeros_like(mean), torch.zeros_like(logvar)
             loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-            for r in range(reps):
+            for r0 in range(0, reps, chunk):
                 m = mean.detach().requires_grad_(True)
                 lv = logvar.detach().requires_grad_(True)
-                loss, rec, pert, out_lat = loss_fn(m, lv, data, draws, r)
-                gm, gl = torch.autograd.grad(loss, [m, lv])
+                loss, rec, pert, out_lat = loss_fn(m, lv, data, draws, range(r0, r0 + chunk))
+                gm, gl = torch.autograd.grad(loss.sum(), [m, lv])
                 g_mean += gm
                 g_logvar += gl
-                loss_sum += loss.detach()
+                loss_sum += loss.detach().sum()
             torch.autograd.backward([mean, logvar], [g_mean / reps, g_logvar / reps])
         aux = {
             "avg_loss": loss_sum / reps,
-            "rec_loss": rec.detach(),
-            "pert_loss": pert.detach(),
+            "rec_loss": rec[-1].detach(),
+            "pert_loss": pert[-1].detach(),
             "prompt_idx": draws.prompt_idx,
-            "output_latent": out_lat.detach(),
+            "output_latent": out_lat[-1:].detach(),
         }
         return x.grad, aux
 

@@ -9,7 +9,9 @@ Flags are made from the ``TrainConfig`` and ``InferenceConfig`` fields, one
 
 SDXL: ``--use-sdxl true`` (immunize at the default 512x512; evaluate at its
 native ``--image-size 1024``); on the CPU the tiny test family,
-``--device cpu --model-family tiny-sdxl``.
+``--device cpu --model-family tiny-sdxl``.  SDXL immunize at 1024x1024:
+``--use-sdxl true --image-size 1024 --dtype bfloat16 --remat-policy full
+--remat-vae true`` (``--eot-chunk N`` batches N reps through the chain).
 
 The JAX package's ``immunize-batch`` and ``sweep`` come with the multi-GPU
 slice of the port.

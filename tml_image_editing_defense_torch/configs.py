@@ -3,16 +3,13 @@
 Port of ``tml_image_editing_defense_tpu/configs.py`` (``TrainConfig``,
 ``InferenceConfig`` and the prompt data).  Every field, default and the
 norm-conditional ``__post_init__`` override (reference configs.py:152-159)
-are the same, except the knobs that shaped the TPU program and have no
-meaning here, which are dropped:
+are the same, except two knobs that shaped the compiled TPU program and have
+no counterpart in an eager loop, which are dropped:
 
-- ``eot_mode`` ("scan" / "vmap" / "shard") and ``eot_chunk``: the reps run
-  one after another, which is the JAX "scan" with chunk 1;
-- ``eot_shards``: one device per run in this slice;
-- ``remat_policy``, ``remat_vae``, ``unroll_denoise``: PyTorch runs eagerly
-  and saves what autograd needs; the flash kernels already keep attention's
-  T x T tensors out of memory;
-- ``dispatch_block``: there is no compiled multi-iteration dispatch.
+- ``unroll_denoise``: whether XLA unrolls the K-step ``lax.scan``; the port's
+  chain is a Python loop, unrolled by nature;
+- ``dispatch_block``: iterations fused into one compiled dispatch; the port
+  launches each iteration's kernels from the host.
 
 ``use_pallas_update`` keeps its name and now means "use the CUDA update
 kernels" (K4 for L2, K5 for L-inf; ops/pgd_kernels.py).
@@ -138,7 +135,7 @@ class TrainConfig:
     ``add_image_caption_to_prompts`` prefixes the prompts with the source's
     BLIP-2 caption (``caption_model_path``).  ``api.immunize`` refuses the
     knobs of a later slice: ``params_path`` and ``tokenizer_paths`` (real
-    weights)."""
+    weights), ``eot_shards`` above 1 and ``eot_mode="shard"`` (multi-GPU)."""
 
     # --- paths / bookkeeping ---
     source_image_path: Path = Path("data/images/japan.jpg")
@@ -204,6 +201,25 @@ class TrainConfig:
     derive_norm_hyperparams: bool = True
     #: Compute dtype of the models ("float32" | "bfloat16").
     dtype: str = "float32"
+    #: How the EOT reps run (JAX configs.py:216-219): "scan" (chunks of
+    #: ``eot_chunk`` reps one after another), "vmap" (all reps in one
+    #: batch), "shard" (reps over cards: the multi-GPU slice, refused).
+    eot_mode: str = "scan"
+    #: Reps batched through the chain together under "scan" (JAX
+    #: configs.py:220-224): the UNet and VAE batches grow from 2 (CFG) to
+    #: 2 x chunk, the activations by x chunk.  Must divide grad_reps.
+    eot_chunk: int = 1
+    #: Cards the reps spread over (JAX configs.py:225-231): None or 1 is one
+    #: card; more comes with the multi-GPU slice and is refused.
+    eot_shards: Optional[int] = None
+    #: What the backward recomputes inside each denoising step (JAX
+    #: configs.py:232-240, attack/forward.py::apply_remat): "none", "dots"
+    #: (save the unbatched matmul outputs), "conv_dots" (and the
+    #: convolutions'), "full" (recompute everything; SDXL at 1024x1024).
+    remat_policy: str = "none"
+    #: Checkpoint the shared VAE encode and each rep's decode, recomputed in
+    #: the backward instead of saved (JAX configs.py:253-258).
+    remat_vae: bool = False
     #: Use the CUDA update kernels (ops/pgd_kernels.py) for the PGD step.
     use_pallas_update: bool = True
     #: Decode and render the visualization grid at vis intervals.

@@ -82,7 +82,14 @@ class DiffusionModel:
     tokenizers: Tuple[HashTokenizer, ...]
     schedule: NoiseSchedule
     device: torch.device
+    #: the UNet's and the text encoders' dtype
     dtype: torch.dtype
+    #: the VAE's dtype (``build_model``'s ``vae_dtype``; ``dtype`` unless given)
+    vae_dtype: Optional[torch.dtype] = None
+
+    def __post_init__(self):
+        if self.vae_dtype is None:
+            self.vae_dtype = self.dtype
 
     @property
     def latent_shape(self) -> Tuple[int, int, int, int]:
@@ -186,18 +193,23 @@ def build_model(
     dtype: Union[str, torch.dtype] = "float32",
     generator: Optional[torch.Generator] = None,
     attn_kv_chunk: Optional[int] = None,
+    vae_dtype: Union[str, torch.dtype, None] = None,
 ) -> DiffusionModel:
     """Build a model bundle with random weights on ``device``.
 
     ``device="meta"`` builds the modules without memory or weights (shape
     checks).  ``attn_kv_chunk``: a chunk size routes long self-attention to
     the flash kernels (see layers.scaled_attention); training builds pass
-    512 (api.immunize does).
+    512 (api.immunize does).  ``vae_dtype`` builds the VAE at another
+    precision than the UNet and the text encoders, which take ``dtype``: the
+    reference's f32 VAE beside a half-precision SDXL UNet
+    (sdxl_img2img_pipeline.py:490-515; JAX model_zoo.py:296, 338-340).
     """
     if family not in _FAMILIES:
         raise ValueError(f"unknown family {family!r}; have {sorted(_FAMILIES)}")
     device = resolve_device(device)
     dtype = set_numerics(dtype)
+    vae_dtype = dtype if vae_dtype is None else set_numerics(vae_dtype)
     unet_cfg, vae_cfg, text_cfgs, native = _FAMILIES[family]
     image_size = image_size or native
     unet_cfg = dataclasses.replace(unet_cfg, attn_kv_chunk=attn_kv_chunk)
@@ -212,7 +224,7 @@ def build_model(
             generator = torch.Generator(device=device).manual_seed(0)
         for net in nets:
             net.to_empty(device=device)
-            net.to(dtype)
+            net.to(vae_dtype if net is vae else dtype)
             random_init_(net, generator)
     for net in nets:
         net.requires_grad_(False)
@@ -228,4 +240,5 @@ def build_model(
         schedule=make_noise_schedule(),
         device=device,
         dtype=dtype,
+        vae_dtype=vae_dtype,
     )

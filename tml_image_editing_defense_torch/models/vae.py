@@ -115,7 +115,10 @@ class Decoder(nn.Module):
 
 class AutoencoderKL(nn.Module):
     """VAE with quant convs; ``encode`` returns the diagonal-Gaussian
-    posterior ``(mean, logvar)`` with logvar clipped to [-30, 20]."""
+    posterior ``(mean, logvar)`` with logvar clipped to [-30, 20].  Inputs
+    are cast to the VAE's weight dtype and the outputs stay in it, as flax
+    promotes a module of ``dtype`` (a VAE at another precision than the
+    UNet, ``build_model``'s ``vae_dtype``)."""
 
     def __init__(self, config: VAEConfig):
         super().__init__()
@@ -127,11 +130,12 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = nn.Conv2d(c, c, 1)
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = x.to(self.quant_conv.weight.dtype)
         mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.post_quant_conv(z))
+        return self.decoder(self.post_quant_conv(z.to(self.post_quant_conv.weight.dtype)))
 
 
 def sample_latent(mean: torch.Tensor, logvar: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
