@@ -88,6 +88,16 @@ Phases, each fatal on failure:
    counts, ISNet dropped before the loop; then one iteration through the
    kernels and through plain attention with the plain masked update
    (within 1e-3 and 1e-4, both at the source outside the mask);
+9b. real weights (w): a random SD-1.5 from a seed written as a diffusers
+   directory, a synthetic LCM-LoRA in PEFT layout (rank 64, alpha, fp16,
+   on every Linear and Conv2d weight of the UNet) and a tokenizer
+   directory at CLIP's size; ``prepare_real_weights.main`` with
+   ``--lora --smoke`` (its seconds and the bundle's size; the smoke's
+   launches counted apart); then ``api.immunize`` with ``params_path`` and
+   ``tokenizer_paths`` for 2 iterations, path d's launches per iteration;
+   every tensor of the model it built equal to the written one (bit for
+   bit where no adapter touched it, the fused weights by the plain formula
+   on the card), the prompt bank's ids equal the CPU tokenizer's;
 10. evaluate: ``cli.main(["evaluate", ...])`` on the diffusion path's
    ``adversarial_image.png`` and ``noise.npz`` at the ``InferenceConfig``
    defaults (SD-1.5 at 512x512, f32, PLMS with 100 steps at strength 0.6:
@@ -142,6 +152,9 @@ Phases, each fatal on failure:
    path's checks, K1-K4 launched as ``pgd_launches`` predicts from the UNet
    config, the VAE mid-blocks and the remat recompute; one iteration under
    ``torch.profiler``; its useful FLOPs and their share of the bf16 peak;
+   one bf16 iteration of 1 rep through K1-K4 against plain attention and
+   the plain update on the same draws (the updates' L2 difference within
+   ``XL1K_BF16_GATE`` of the update, beside the noise floor it measures);
    then the kernels against plain attention on one f32 iteration of 1 rep
    at 1024x1024 with the same remat (within 1e-3 and 1e-4);
 16. a JSON line naming every kernel with its launches on every path, error
@@ -215,6 +228,17 @@ K4_KERNELS = ("pgd_l2_resident_kernel", "pgd_l2_partials_kernel", "pgd_l2_write_
 K5_KERNELS = ("pgd_linf_kernel",)
 #: what may stay allocated on the card once a path's objects are dropped
 HELD_LIMIT_GB = 1.0
+#: path w: iterations, and the synthetic LCM-LoRA's rank and alpha (the
+#: published SD-1.5 LCM-LoRA's rank, stored in fp16)
+REAL_ITERATIONS, REAL_LORA_RANK, REAL_LORA_ALPHA = 2, 64, 8.0
+#: CLIP's vocabulary: 49408 ids, BOS and EOS the last two
+CLIP_VOCAB = 49408
+#: xl1k's bf16 gate: the update through K1-K3 against plain attention, L2
+#: of the difference over the plain update's, on the same draws; the bound
+#: is twice the noise floor the gate also measures (plain against plain
+#: with the draws moved by bf16's unit roundoff, 2^-8): 0.1103 on an H100
+#: (kernels against plain 0.1124; plain against plain 0, bit-equal)
+XL1K_BF16_GATE = 0.22
 #: seconds since the script started at the end of each phase
 STARTED = time.perf_counter()
 PHASE_END_S: dict = {}
@@ -1070,8 +1094,8 @@ def write_safetensors(path: Path, tensors: dict) -> int:
     """This script's own writer of the safetensors format (the package has
     a reader only): an 8-byte little-endian header length, the JSON header
     of ``{name: {dtype, shape, data_offsets}}``, then the raw bytes.
-    f32 and i64 tensors; returns the file's size in bytes."""
-    names = {"float32": "F32", "int64": "I64"}
+    f32, f16 and i64 tensors; returns the file's size in bytes."""
+    names = {"float32": "F32", "float16": "F16", "int64": "I64"}
     header, blobs, offset = {}, [], 0
     for name, t in tensors.items():
         arr = t.detach().cpu().contiguous().numpy()
@@ -1084,6 +1108,234 @@ def write_safetensors(path: Path, tensors: dict) -> int:
     raw += b" " * (-len(raw) % 8)
     path.write_bytes(len(raw).to_bytes(8, "little") + raw + b"".join(blobs))
     return path.stat().st_size
+
+
+def write_tokenizer_dir(d: Path, texts) -> dict:
+    """A CLIP-format tokenizer directory at CLIP's size: ``vocab.json`` with
+    49408 ids (the 512 byte-level symbols, with and without ``</w>``, the
+    tokens that ``merges.txt`` builds, filler ids, then ``<|startoftext|>``
+    49406 and ``<|endoftext|>`` 49407), and merges that assemble every word
+    of ``texts`` left to right, so that BPE merges apply to the prompts."""
+    from tml_image_editing_defense_torch.models.tokenizer import (
+        basic_clean,
+        bytes_to_unicode,
+        clip_pattern,
+    )
+
+    byte_chars = list(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(byte_chars)}
+    vocab.update({c + "</w>": len(byte_chars) + i for i, c in enumerate(byte_chars)})
+    merges, seen = [], set()
+    for text in texts:
+        for word in clip_pattern().findall(basic_clean(text)):
+            syms = [bytes_to_unicode()[b] for b in word.encode("utf-8")]
+            syms[-1] += "</w>"
+            cur = syms[0]
+            for sym in syms[1:]:
+                if (cur, sym) not in seen:
+                    seen.add((cur, sym))
+                    merges.append(f"{cur} {sym}")
+                cur += sym
+                vocab.setdefault(cur, len(vocab))
+    n_merged = len(vocab) - 2 * len(byte_chars)
+    while len(vocab) < CLIP_VOCAB - 2:          # ids no BPE token can take
+        vocab[f"\u2603{len(vocab)}"] = len(vocab)
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = CLIP_VOCAB - 2, CLIP_VOCAB - 1
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "vocab.json").write_text(json.dumps(vocab))
+    (d / "merges.txt").write_text("#version: 0.2\n" + "\n".join(merges) + "\n")
+    return {"vocab": len(vocab), "merges": len(merges), "merged_tokens": n_merged}
+
+
+def real_weights_path(api, prep, kernels, cfg, per_iteration: dict, outside: dict,
+                      tmp: Path) -> dict:
+    """Path w: real-weight loading at full width on synthetic files.
+
+    A seeded random SD-1.5 made on the card goes to a diffusers directory
+    (``unet/``, ``vae/``, ``text_encoder/``) through :func:`write_safetensors`;
+    a synthetic LCM-LoRA in PEFT layout (rank 64, ``alpha`` tensors, fp16)
+    covers every Linear and Conv2d weight of the UNet; a tokenizer
+    directory at CLIP's size (:func:`write_tokenizer_dir`).
+    ``prepare_real_weights.main`` (strict load, LoRA fusion, the params
+    bundle, its smoke) runs with its own launches counted apart; then
+    ``api.immunize`` with ``params_path`` and ``tokenizer_paths`` through
+    :func:`immunize_path` (path d's launches per iteration).  Every tensor
+    of the model ``immunize`` built must equal the written one, bit for bit
+    where no adapter touched it, and each fused weight ``W + (alpha/r)·B@A``
+    by the plain f32 formula on the card, within f32 rounding and the one
+    fp16 rounding of the delta that the reference makes (its delta is in
+    the factors' dtype); the prompt bank's ids must equal a
+    fresh tokenizer's on the CPU, with merges applied.  The files are
+    deleted at the end."""
+    import dataclasses
+    import shutil
+
+    import torch
+    import torch.nn as nn
+
+    from tml_image_editing_defense_torch.configs import format_prompt
+    from tml_image_editing_defense_torch.models.model_zoo import build_model
+    from tml_image_editing_defense_torch.models.tokenizer import HFCLIPTokenizer
+
+    t0 = time.perf_counter()
+    start = torch.cuda.memory_allocated()
+    root = tmp / "real"
+    out = {}
+    ref = build_model("sd15", device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(101))
+    t = time.perf_counter()
+    out["written_bytes"] = {}
+    for sub, module, name in (("unet", ref.unet, "diffusion_pytorch_model.safetensors"),
+                              ("vae", ref.vae, "diffusion_pytorch_model.safetensors"),
+                              ("text_encoder", ref.text_models[0], "model.safetensors")):
+        (root / sub).mkdir(parents=True)
+        out["written_bytes"][sub] = write_safetensors(root / sub / name, module.state_dict())
+    # the LCM-LoRA, in fp16: A fan-in scaled, B small, as a trained adapter's
+    gen = torch.Generator(device="cuda").manual_seed(102)
+    r, lora, targets = REAL_LORA_RANK, {}, {}
+    for name, m in ref.unet.named_modules():
+        if not isinstance(m, (nn.Linear, nn.Conv2d)):
+            continue
+        w = m.weight
+        a_shape = (r, *w.shape[1:])
+        b_shape = (w.shape[0], r) if w.ndim == 2 else (w.shape[0], r, 1, 1)
+        a = torch.randn(a_shape, generator=gen, device="cuda") / math.sqrt(w[0].numel())
+        b = 0.01 * torch.randn(b_shape, generator=gen, device="cuda")
+        lora[f"unet.{name}.lora_A.weight"] = a.half()
+        lora[f"unet.{name}.lora_B.weight"] = b.half()
+        lora[f"unet.{name}.alpha"] = torch.tensor(REAL_LORA_ALPHA, dtype=torch.float16)
+        targets[name] = w.ndim
+    lora_path = root / "pytorch_lora_weights.safetensors"
+    out["lora_bytes"] = write_safetensors(lora_path, lora)
+    out["lora_modules"] = len(targets)
+    texts = [format_prompt(p) for p in cfg.prompts] + [cfg.negative_prompt]
+    out["tokenizer"] = write_tokenizer_dir(root / "tokenizer", texts)
+    out["write_s"] = time.perf_counter() - t
+
+    bundle = root / "sd15_lcm.msgpack"
+    for kern in kernels:
+        kern.launches = 0
+    t = time.perf_counter()
+    prepared = prep.main(["--model-dir", str(root), "--lora", str(lora_path), "--out", str(bundle),
+                          "--smoke"])
+    torch.cuda.synchronize()
+    out["prepare_s"] = time.perf_counter() - t
+    out["smoke_launches"] = {kern.symbol: kern.launches for kern in kernels}
+    out["bundle_bytes"] = bundle.stat().st_size
+    del prepared
+    for sub in ("unet", "vae", "text_encoder"):
+        shutil.rmtree(root / sub)
+    free_card()
+
+    wcfg = dataclasses.replace(cfg, output_path=tmp / "out_real",
+                               n_optimization_steps=REAL_ITERATIONS, params_path=bundle,
+                               tokenizer_paths=[str(root / "tokenizer")])
+    w = immunize_path(api, wcfg, kernels, per_iteration, outside)
+    result = w.pop("_result")
+    del w["_src"], w["_tgt"]
+    out.update(w)
+    model = result.model
+
+    # the tokenizer immunize used against a fresh one on the CPU
+    tok = model.tokenizers[0]
+    require(isinstance(tok, HFCLIPTokenizer), f"immunize built {type(tok).__name__}")
+    ids = tok(texts)
+    require((ids == HFCLIPTokenizer(root / "tokenizer")(texts)).all(), "token ids differ")
+    out["merged_ids"] = int(((ids >= 512) & (ids < CLIP_VOCAB - 2)).sum())
+    require(out["merged_ids"] > 0, "no BPE merge applied to the prompt bank")
+
+    out.update(check_loaded_weights(model, ref, lora, targets))
+    del result, model, ref, lora
+    shutil.rmtree(root)
+    free_card()
+    out["held_above_start_gb"] = (torch.cuda.memory_allocated() - start) / 1e9
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def check_loaded_weights(model, ref, lora: dict, targets: dict) -> dict:
+    """Path w's weight check: ``model`` (built by ``immunize`` from the
+    bundle) against ``ref`` (the model whose weights were written) and the
+    LoRA factors: VAE, text encoder and untouched UNet tensors bit-equal,
+    each fused weight within tolerance of ``W + (alpha/r)·B@A`` in f32."""
+    import torch
+
+    with torch.no_grad():
+        for part, got_m, want_m in (("vae", model.vae, ref.vae),
+                                    ("text_encoder", model.text_models[0], ref.text_models[0])):
+            got, want = got_m.state_dict(), want_m.state_dict()
+            require(set(got) == set(want), part)
+            bad = [k for k in want if not torch.equal(got[k], want[k])]
+            require(not bad, f"{part}: {len(bad)} tensors differ from the written ones, {bad[:3]}")
+        got, want = model.unet.state_dict(), ref.unet.state_dict()
+        fused = {f"{n}.weight" for n in targets}
+        bad = [k for k in want if k not in fused and not torch.equal(got[k], want[k])]
+        require(not bad, f"unet: {len(bad)} untouched tensors differ, {bad[:3]}")
+        s = REAL_LORA_ALPHA / REAL_LORA_RANK
+        worst, moved = 0.0, 0.0
+        for name, ndim in targets.items():
+            a = lora[f"unet.{name}.lora_A.weight"].float()
+            b = lora[f"unet.{name}.lora_B.weight"].float()
+            delta = b @ a if ndim == 2 else torch.einsum("or,rikl->oikl", b.flatten(1), a)
+            w_plain = want[f"{name}.weight"] + s * delta
+            err = (got[f"{name}.weight"] - w_plain).abs()
+            # the delta's one rounding to fp16 (half an ulp, or 2^-25 below
+            # fp16's normal range) with the f32 product's own spread, then
+            # two f32 roundings of the sum
+            tol = (s * (delta.abs() * (2.0 ** -11 + 2.0 ** -20) + 2.0 ** -25)
+                   + w_plain.abs() * 2.0 ** -22)
+            require(bool((err <= tol).all()), f"fused {name}: max err {err.max().item():.3e}")
+            worst = max(worst, (err / tol).max().item())
+            moved = max(moved, (s * delta).abs().max().item())
+    return {"fused_err_over_tol_max": worst, "fused_delta_max": moved}
+
+
+def bf16_iteration_gate(model, cfg, inputs, layers, bound: float) -> dict:
+    """One bf16 PGD iteration on the same draws through K1-K4 and through
+    plain attention with the plain update: the updates (x_adv - x0) may
+    differ by ``bound`` in L2 relative to the plain update's.  The noise
+    floor beside it: plain again (cuDNN's nondeterminism), and plain with
+    the posterior and step noises moved by bf16's unit roundoff (2^-8,
+    times a seeded standard normal)."""
+    import dataclasses
+
+    import torch
+
+    from tml_image_editing_defense_torch.attack.pgd import make_pgd_step
+
+    sampler, plan, data, draws = inputs
+    floor = layers.MIN_CHUNKED_SEQ
+
+    def run(plain: bool, d):
+        c = dataclasses.replace(cfg, use_pallas_update=not plain)
+        layers.MIN_CHUNKED_SEQ = 1 << 30 if plain else floor
+        try:
+            x, aux = make_pgd_step(model, sampler, plan, c, decode_vis=False)(data.source, data, d)
+        finally:
+            layers.MIN_CHUNKED_SEQ = floor
+        return x.float(), aux["avg_loss"].item()
+
+    gen = torch.Generator(device=data.source.device).manual_seed(7)
+
+    def moved(t):
+        n = torch.randn(t.shape, generator=gen, device=t.device)
+        return (t.float() * (1 + 2.0 ** -8 * n)).to(t.dtype)
+
+    x0 = data.source.float()
+    x_k, l_k = run(False, draws)
+    x_p, l_p = run(True, draws)
+    x_p2, _ = run(True, draws)
+    x_m, _ = run(True, dataclasses.replace(draws, vae_eps=moved(draws.vae_eps),
+                                           step_noise=moved(draws.step_noise)))
+    upd = torch.linalg.vector_norm(x_p - x0).item()
+    rel = lambda a: torch.linalg.vector_norm(a - x_p).item() / upd           # noqa: E731
+    out = {"kernels_vs_plain": rel(x_k), "plain_vs_plain": rel(x_p2),
+           "floor_draws_at_bf16_roundoff": rel(x_m), "bound": bound,
+           "update_l2": upd, "avg_loss_rel_diff": abs(l_k - l_p) / abs(l_p),
+           "x_adv_max_abs_diff": max_err(x_k, x_p)}
+    require(out["kernels_vs_plain"] <= bound and math.isfinite(out["avg_loss_rel_diff"]),
+            f"one bf16 PGD iteration through the kernels vs plain: {out}")
+    return out
 
 
 def isnet_conv_flops(isnet, size: int) -> int:
@@ -1763,6 +2015,7 @@ def main(argv) -> int:
     from PIL import Image
 
     from tml_image_editing_defense_torch import api, cli
+    from tml_image_editing_defense_torch import prepare_real_weights as prep
     from tml_image_editing_defense_torch import universal_attack as ua
     from tml_image_editing_defense_torch.attack import universal
     from tml_image_editing_defense_torch.configs import TrainConfig
@@ -1959,6 +2212,46 @@ def main(argv) -> int:
                 f"{msk['held_above_start_gb']:.2f} GB stay allocated after the masked path")
         del result
         free_card(held, "diffusion")
+
+        # ---- real weights (w): path d's computation on loaded weights ------
+        # a random SD-1.5 written in diffusers layout with a synthetic
+        # LCM-LoRA and a CLIP-size tokenizer directory, prepared into a params
+        # bundle, then api.immunize with params_path and tokenizer_paths:
+        # path d's launches per iteration
+        per_it = cfg.grad_reps * (2 * long_attn + 1) + 1
+        rw = report["real_weights_path"] = real_weights_path(
+            api, prep, kernels, cfg,
+            {"tid_flash_fwd": per_it, "tid_flash_bwd_kv": per_it, "tid_flash_bwd_q": per_it,
+             "tid_pgd_l2_update": 1},
+            {"tid_flash_fwd": 1 + len({0, REAL_ITERATIONS - 1})}, tmp)
+        # the smoke: encode, one UNet call (batch 1) and a decode, forward only
+        require(rw["smoke_launches"] == {k.symbol: (2 + long_attn if k.symbol == "tid_flash_fwd"
+                                                    else 0) for k in kernels},
+                ("prepare_real_weights smoke launches", rw["smoke_launches"]))
+        print(f"[real-weights] diffusers directory written in {rw['write_s']:.1f} s (bytes "
+              f"{rw['written_bytes']}); LCM-LoRA rank {REAL_LORA_RANK} fp16 on "
+              f"{rw['lora_modules']} Linear and Conv2d weights, {rw['lora_bytes']} bytes; "
+              f"tokenizer {rw['tokenizer']}; prepare_real_weights (strict load, LoRA fusion, "
+              f"bundle, smoke) {rw['prepare_s']:.1f} s, bundle {rw['bundle_bytes']} bytes, smoke "
+              f"launches {rw['smoke_launches']}", flush=True)
+        print(f"[real-weights] immunize sd15 512x512 f32 with params_path and tokenizer_paths, "
+              f"{REAL_ITERATIONS} iterations x {cfg.grad_reps} reps: {rw['wall_s']:.1f} s in all "
+              f"(model build and bundle load included), {rw['s_per_iteration_after_first']:.2f} "
+              f"s/iteration after the first (path d: {diff['s_per_iteration_after_first']:.2f}), "
+              f"peak {rw['max_memory_allocated_gb']:.2f} GB; losses "
+              f"{[round(h['avg_loss'], 4) for h in rw['history']]}; |x_adv - src|_2 = "
+              f"{rw['dist']:.3f} <= {cfg.eps}; launches {rw['launches']}; every VAE and text "
+              f"tensor and every untouched UNet tensor bit-equal to the written one, the fused "
+              f"weights within tolerance (worst err/tol {rw['fused_err_over_tol_max']:.3f}, "
+              f"largest fused delta {rw['fused_delta_max']:.2e}); prompt-bank ids equal the CPU "
+              f"tokenizer's ({rw['merged_ids']} merged-token ids)", flush=True)
+        require(rw["held_above_start_gb"] <= HELD_LIMIT_GB,
+                f"{rw['held_above_start_gb']:.2f} GB stay allocated after path w")
+        print(f"[real-weights] phase w in {rw['phase_s']:.1f} s", flush=True)
+        free_card(held, "real-weights")
+        rw["flops"] = fl = path_flops("sd15", cfg, d_steps, REAL_ITERATIONS,
+                                      rw["s_per_iteration_after_first"], torch.float32)
+        print_flops("real-weights", fl)
 
         # ---- the inpaint path ---------------------------------------------
         # Per iteration: 5 reps x (1 encode + 3 UNet calls x 5 long
@@ -2221,6 +2514,21 @@ def main(argv) -> int:
         x1["flops"] = fl = path_flops("sdxl", x1cfg, d_steps, XL1K_ITERATIONS,
                                       x1["s_per_iteration_after_first"], torch.bfloat16)
         print_flops("sdxl-1024", fl)
+        # the kernels against plain attention in bf16, one iteration of 1 rep
+        # on the same draws, against the bound set from the noise floor
+        g16cfg = dataclasses.replace(x1cfg, derive_norm_hyperparams=False, grad_reps=1,
+                                     output_path=tmp / "out_sdxl_1024_gate16")
+        del inputs
+        inputs = one_iteration_inputs(result.model, g16cfg, src, tgt)
+        g16 = report["sdxl_1024_bf16_vs_plain"] = bf16_iteration_gate(
+            result.model, g16cfg, inputs, layers, XL1K_BF16_GATE)
+        print(f"[gate] one SDXL {XL1K_SIZE}x{XL1K_SIZE} bf16 PGD iteration of 1 rep (remat full, "
+              f"remat_vae), K1-K4 against plain attention and the plain update on the same "
+              f"draws: update L2 difference {g16['kernels_vs_plain']:.4f} of the update's "
+              f"<= {XL1K_BF16_GATE}; noise floor: plain again {g16['plain_vs_plain']:.4f}, plain "
+              f"with the draws at bf16's roundoff {g16['floor_draws_at_bf16_roundoff']:.4f}; "
+              f"avg_loss {g16['avg_loss_rel_diff']:.2e} relative, |x_adv diff|_max "
+              f"{g16['x_adv_max_abs_diff']:.2e}", flush=True)
         del result, inputs
         free_card(held, "sdxl-1024")
         # the kernels against plain attention at 1024x1024, in f32 (the other
@@ -2282,7 +2590,8 @@ def kernel_rows(flash, updates, report) -> list:
                 "sdxl-evaluate": report["sdxl_evaluate_path"]["launches"],
                 "universal": report["universal_path"]["launches"],
                 "universal-sdxl": report["universal_sdxl_path"]["launches"],
-                "sdxl-1024": report["sdxl_1024_path"]["launches"]}
+                "sdxl-1024": report["sdxl_1024_path"]["launches"],
+                "real-weights": report["real_weights_path"]["launches"]}
     by_path = lambda sym: {path: counts[sym] for path, counts in launches.items()}  # noqa: E731
     at_shape = {(path, shape): report[f"{path.replace('-', '_')}_path"]["k1_launches_at_shape"][part]
                 for path, (unet, vae) in (("evaluate", (EVAL_UNET_SHAPE, EVAL_VAE_SHAPE)),
@@ -2297,7 +2606,8 @@ def kernel_rows(flash, updates, report) -> list:
                                           ("sdxl-1024", (UX_UNET_SHAPE, UX_VAE_SHAPE)))
                 for part, shape in (("unet", unet), ("vae", vae))}
     rows = []
-    for path, shape in (("diffusion", UNET_SHAPE), ("inpaint", UNET_SHAPE),
+    for path, shape in (("diffusion", UNET_SHAPE), ("real-weights", UNET_SHAPE),
+                        ("inpaint", UNET_SHAPE),
                         ("encoder", ENC_ATTN_SHAPE), ("evaluate", EVAL_UNET_SHAPE),
                         ("evaluate", EVAL_VAE_SHAPE), ("sdxl", VAE_SHAPE),
                         ("sdxl-evaluate", SDXL_EVAL_UNET_SHAPE),
@@ -2328,8 +2638,8 @@ def kernel_rows(flash, updates, report) -> list:
                 row["launches_at_shape"] = by_shape[(path, shape)][sym]
             rows.append(row)
     update_rows = [("pgd_l2_update", path, "tid_pgd_l2_update", 118, updates["l2"][key])
-                   for path, key in (("diffusion", "f32"), ("sdxl", "f32"),
-                                     ("sdxl-1024", "bf16-1024"))]
+                   for path, key in (("diffusion", "f32"), ("real-weights", "f32"),
+                                     ("sdxl", "f32"), ("sdxl-1024", "bf16-1024"))]
     update_rows += [("pgd_linf_update", path, "tid_pgd_linf_update", 64,
                      updates["linf"][f"{shape}-float32"])
                     for path, shape in (("inpaint", IMAGE_SHAPE), ("encoder", ENC_IMAGE_SHAPE))]

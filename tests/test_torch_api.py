@@ -1,7 +1,8 @@
 """``immunize`` of the port end to end on the CPU, on the tiny family: the
 artifacts (PNG, a ``noise.npz`` the JAX package reads back, one finite
 ``metrics.jsonl`` row per iteration, ``attack_state.npz``), the eps-ball,
-and the refusals of what later slices bring."""
+and the refusals of what later slices bring (real weights:
+tests/test_torch_real_weights.py)."""
 
 from __future__ import annotations
 
@@ -130,21 +131,7 @@ def test_evaluate_without_a_device_raises_where_cuda_is_absent(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    {"params_path": "weights.msgpack"},
-    {"tokenizer_paths": ["tok"]},
-    {"use_segmentation_mask": True, "params_path": "weights.msgpack"},
-])
-def test_later_slices_raise_not_implemented(tmp_path, kw):
-    """The real-weight knobs stay refused; the aux models' are taken
-    (tests/test_torch_masked.py, tests/test_torch_aux_models.py)."""
-    with pytest.raises(NotImplementedError):
-        api.immunize(_cfg(tmp_path, **kw), device="cpu")
-
-
-@pytest.mark.parametrize("kw", [
     {"eval_shards": 2},
-    {"params_path": "weights.msgpack"},
-    {"tokenizer_paths": ["tok"]},
 ])
 def test_evaluate_later_slices_raise_not_implemented(tmp_path, kw):
     src, _ = _images(tmp_path)

@@ -398,8 +398,7 @@ def test_universal_attack_entry_point_on_cpu(tmp_path):
             assert im.size[0] == 3 * 32 and im.size[1] > 32
 
 
-@pytest.mark.parametrize("flags", [["--params", "w.msgpack"], ["--preview-params", "taesd/"],
-                                   ["--eot-shards", "2"]])
+@pytest.mark.parametrize("flags", [["--eot-shards", "2"]])
 def test_universal_attack_refuses_later_slices(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="slice of the port"):
         universal_attack.main(["--dataset-dir", str(tmp_path), "--device", "cpu", *flags])

@@ -106,17 +106,25 @@ def _train_attn_chunk(image_size: int) -> Optional[int]:
     return 512 if image_size >= 512 else None
 
 
-_LATER = {
-    "params_path": "real-weight slice",
-    "tokenizer_paths": "real-weight slice",
-}
+def _cfg_model(cfg, device, dtype, attn_kv_chunk: Optional[int]) -> DiffusionModel:
+    """The model a config describes (JAX ``_cfg_model``, api.py:102-133):
+    ``cfg``'s family with random weights made on ``device`` from
+    ``cfg.seed``, its tokenizers from ``cfg.tokenizer_paths`` (one string is
+    a list of one), and with ``cfg.params_path`` the bundle's weights loaded
+    over it, cast through ``dtype`` (``models/checkpoint_io.py``; the file of
+    ``prepare_real_weights`` in either package)."""
+    tok_paths = cfg.tokenizer_paths
+    if isinstance(tok_paths, (str, Path)):         # the CLI passes one string
+        tok_paths = [tok_paths]
+    model = build_model(_default_family(cfg), image_size=cfg.image_size, device=device,
+                        dtype=dtype,
+                        generator=torch.Generator(device=device).manual_seed(cfg.seed),
+                        attn_kv_chunk=attn_kv_chunk, tokenizer_paths=tok_paths)
+    if cfg.params_path is not None:
+        from tml_image_editing_defense_torch.models.checkpoint_io import load_params
 
-
-def _refuse_later(cfg) -> None:
-    for name, slice_ in _LATER.items():
-        value = getattr(cfg, name, None)
-        if value is not None and value is not False:
-            raise NotImplementedError(f"{name} comes with the {slice_} of the port")
+        load_params(cfg.params_path, model, dtype=dtype)
+    return model
 
 
 def _caption_prefix(cfg, image: Image.Image, device) -> str:
@@ -136,7 +144,6 @@ def _caption_prefix(cfg, image: Image.Image, device) -> str:
 def _check_supported(cfg: TrainConfig) -> None:
     if cfg.attack_mode not in ("diffusion", "inpaint"):
         raise ValueError(f"unknown attack_mode {cfg.attack_mode!r}")
-    _refuse_later(cfg)
     if cfg.eot_shards not in (None, 1):
         raise NotImplementedError(f"eot_shards={cfg.eot_shards} comes with the multi-GPU slice "
                                   "of the port (one card: None or 1)")
@@ -157,7 +164,10 @@ def immunize(
 
     Runs on the card unless ``device="cpu"``; raises when CUDA is absent and
     the CPU was not asked for.  ``model`` defaults to ``cfg``'s family with
-    random weights made on the device from ``cfg.seed``; the set-up draws
+    random weights made on the device from ``cfg.seed``, or with the
+    weights of the bundle ``cfg.params_path`` and the tokenizers of
+    ``cfg.tokenizer_paths`` (:func:`_cfg_model`); a model handed in is used
+    as it is.  The set-up draws
     (noise pool, target posterior noise) come from a stream of their own
     (``core.rng.stream_generator``), so they do not depend on whether the
     model was built here.
@@ -191,10 +201,7 @@ def immunize(
     device = resolve_device(device)
     dtype = set_numerics(cfg.dtype)
     if model is None:
-        model = build_model(_default_family(cfg), image_size=cfg.image_size, device=device,
-                            dtype=dtype,
-                            generator=torch.Generator(device=device).manual_seed(cfg.seed),
-                            attn_kv_chunk=_train_attn_chunk(cfg.image_size))
+        model = _cfg_model(cfg, device, dtype, _train_attn_chunk(cfg.image_size))
     setup = stream_generator(cfg.seed, SETUP_STREAM, device)
     is_inpaint = cfg.attack_mode == "inpaint"
     in_ch = model.unet.config.in_channels
@@ -342,7 +349,6 @@ def transfer_perturbation(
 
 
 def _check_eval_supported(cfg: InferenceConfig) -> None:
-    _refuse_later(cfg)
     if cfg.eval_shards not in (None, 1):
         raise NotImplementedError(f"eval_shards={cfg.eval_shards} comes with the multi-GPU "
                                   "slice of the port (one card: None or 1)")
@@ -367,7 +373,8 @@ def evaluate(
 
     Runs on the card unless ``device="cpu"`` (or ``model`` lies elsewhere);
     ``model`` defaults to ``cfg``'s family with random weights made from
-    ``cfg.seed``, built with ``attn_kv_chunk=512``, so that the long
+    ``cfg.seed`` (or ``cfg.params_path``'s and ``cfg.tokenizer_paths``',
+    :func:`_cfg_model`), built with ``attn_kv_chunk=512``, so that the long
     self-attentions run in K1.  The JAX package keeps XLA's fused attention
     for evaluation below 1024x1024 (its api.py:94-99, :604), which computes
     the same function; on the card that slot is K1's, and plain attention
@@ -393,11 +400,7 @@ def evaluate(
         batch_edits = cfg.image_size < 1024
     dtype = set_numerics(cfg.dtype)
     if model is None:
-        device = resolve_device(device)
-        model = build_model(_default_family(cfg), image_size=cfg.image_size, device=device,
-                            dtype=dtype,
-                            generator=torch.Generator(device=device).manual_seed(cfg.seed),
-                            attn_kv_chunk=EVAL_ATTN_CHUNK)
+        model = _cfg_model(cfg, resolve_device(device), dtype, EVAL_ATTN_CHUNK)
     device = model.device
     inference_prompts = list(inference_prompts or INFERENCE_PROMPTS)
     pipeline = Img2ImgPipeline(model,

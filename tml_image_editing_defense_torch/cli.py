@@ -13,6 +13,11 @@ native ``--image-size 1024``); on the CPU the tiny test family,
 ``--use-sdxl true --image-size 1024 --dtype bfloat16 --remat-policy full
 --remat-vae true`` (``--eot-chunk N`` batches N reps through the chain).
 
+Real weights: ``--params-path W.msgpack`` (a bundle of
+``prepare_real_weights``, of either package) and ``--tokenizer-paths DIR``
+(one CLIP tokenizer directory; the second SDXL encoder keeps the hash
+tokenizer).
+
 The JAX package's ``immunize-batch`` and ``sweep`` come with the multi-GPU
 slice of the port.
 """

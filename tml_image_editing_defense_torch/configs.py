@@ -133,9 +133,11 @@ class TrainConfig:
     ``segmentation_model_path``, else the JAX package's fallbacks (the
     ``transformers`` pipeline, then a heuristic).
     ``add_image_caption_to_prompts`` prefixes the prompts with the source's
-    BLIP-2 caption (``caption_model_path``).  ``api.immunize`` refuses the
-    knobs of a later slice: ``params_path`` and ``tokenizer_paths`` (real
-    weights), ``eot_shards`` above 1 and ``eot_mode="shard"`` (multi-GPU)."""
+    BLIP-2 caption (``caption_model_path``).  ``params_path`` (a params
+    bundle from ``prepare_real_weights``, of either package) and
+    ``tokenizer_paths`` (CLIP tokenizer directories) give real weights.
+    ``api.immunize`` refuses the knobs of a later slice: ``eot_shards``
+    above 1 and ``eot_mode="shard"`` (multi-GPU)."""
 
     # --- paths / bookkeeping ---
     source_image_path: Path = Path("data/images/japan.jpg")
@@ -227,9 +229,9 @@ class TrainConfig:
     #: Save the PGD state to ``output_path/attack_state.npz`` every N
     #: iterations (0 = off).
     checkpoint_interval: int = 0
-    #: Converted real-weight checkpoint (None = random weights).
+    #: Params bundle of ``prepare_real_weights`` (None = random weights).
     params_path: Optional[Path] = None
-    #: Local HF tokenizer directories (None = hash tokenizer).
+    #: Local CLIP tokenizer directories (None = hash tokenizer).
     tokenizer_paths: Optional[List[Optional[str]]] = None
 
     def __post_init__(self):
@@ -265,8 +267,8 @@ class InferenceConfig:
 
     ``eval_shards`` takes None or 1 (one card).  ``add_image_caption_to_prompts``
     prefixes the prompts with the source's BLIP-2 caption
-    (``caption_model_path``).  ``api.evaluate`` refuses the knobs of a later
-    slice: ``params_path`` and ``tokenizer_paths`` (real weights)."""
+    (``caption_model_path``).  ``params_path`` and ``tokenizer_paths`` give
+    real weights, as in :class:`TrainConfig`."""
 
     source_image_path: Path = Path("data/images/japan.jpg")
     target_image_path: Path = Path("data/images/japan.jpg")

@@ -11,10 +11,13 @@ mechanical:
   kernels [in, out] -> [out, in], conv kernels HWIO -> OIHW;
 - CLIP paths take the transformers prefixes (``text_model.encoder...``).
 
-The port's modules then ``load_state_dict(strict=True)`` the result.
+The port's modules then take the result through :func:`load_state`, the
+counterpart of the JAX ``convert_state_dict``; :func:`to_jax_params` is the
+inverse of :func:`from_jax_params`, for the params bundle
+(``models/checkpoint_io.py``).
 
 :func:`load_safetensors` reads a checkpoint file without the ``safetensors``
-package.
+package, and :func:`load_sd_checkpoint` a diffusers model directory with it.
 """
 
 from __future__ import annotations
@@ -34,13 +37,14 @@ _NUM_RE = re.compile(r"_(\d+)(_|$)")
 _LITERAL_NAMES = frozenset({"linear_1", "linear_2"})
 
 
-def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], np.ndarray]:
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], object]:
+    """{path: leaf}; torch leaves stay tensors (numpy has no bfloat16)."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
             out.update(_flatten(v, prefix + (k,)))
         else:
-            out[prefix + (k,)] = np.asarray(v)
+            out[prefix + (k,)] = v if isinstance(v, torch.Tensor) else np.asarray(v)
     return out
 
 
@@ -84,19 +88,87 @@ def _clip_key(path) -> str:
     raise KeyError(f"unmapped CLIP path {path}")
 
 
-def _to_torch_layout(arr: np.ndarray, leaf: str) -> np.ndarray:
+def _to_torch_layout(t: torch.Tensor, leaf: str) -> torch.Tensor:
     if leaf == "kernel":
-        if arr.ndim == 2:
-            return arr.T                       # Dense [in, out] -> [out, in]
-        if arr.ndim == 4:
-            return arr.transpose(3, 2, 0, 1)   # conv HWIO -> OIHW
-    return arr
+        if t.ndim == 2:
+            return t.T                         # Dense [in, out] -> [out, in]
+        if t.ndim == 4:
+            return t.permute(3, 2, 0, 1)       # conv HWIO -> OIHW
+    return t
+
+
+def _to_flax_layout(t: torch.Tensor, leaf: str) -> torch.Tensor:
+    if leaf == "kernel":
+        if t.ndim == 2:
+            return t.T                         # Dense [out, in] -> [in, out]
+        if t.ndim == 4:
+            return t.permute(2, 3, 1, 0)       # conv OIHW -> HWIO
+    return t
+
+
+#: torch names that open a flax module spanning the next name as well:
+#: ``down_blocks.0.attentions.0`` is the one flax module
+#: ``down_blocks_0_attentions_0``, ``mid_block.resnets.0`` is
+#: ``mid_block_resnets_0``, ``ff.net.0.proj`` is ``ff / net_0_proj``
+_SPANNING = re.compile(r"(down_blocks_\d+|up_blocks_\d+|mid_block|net_\d+)")
+
+
+def _generic_path(key: str, ndim: int) -> Tuple[str, ...]:
+    """Inverse of :func:`_generic_key`: a diffusers key -> the flax path."""
+    *names, leaf = key.split(".")
+    joined = []
+    for name in names:                 # an index joins the name before it
+        if name.isdigit() and joined:
+            joined[-1] += "_" + name
+        else:
+            joined.append(name)
+    path = []
+    for name in joined:
+        if path and _SPANNING.fullmatch(path[-1]):
+            path[-1] += "_" + name
+        else:
+            path.append(name)
+    if leaf == "weight":
+        leaf = "kernel" if ndim in (2, 4) else "scale"
+    return (*path, leaf)
+
+
+def _clip_path(key: str, ndim: int) -> Tuple[str, ...]:
+    """Inverse of :func:`_clip_key`: a transformers CLIP key -> the flax path."""
+    if key == "text_model.embeddings.token_embedding.weight":
+        return ("token_embedding", "embedding")
+    if key == "text_model.embeddings.position_embedding.weight":
+        return ("position_embedding",)
+    if key == "text_projection.weight":
+        return ("text_projection", "kernel")
+    leaf = key.rsplit(".", 1)[-1]
+    if leaf == "weight":
+        leaf = "kernel" if ndim == 2 else "scale"
+    m = re.fullmatch(r"text_model\.final_layer_norm\.\w+", key)
+    if m:
+        return ("final_layer_norm", leaf)
+    m = re.fullmatch(r"text_model\.encoder\.layers\.(\d+)\.(?:self_attn\.|mlp\.)?(\w+)\.\w+", key)
+    if m:
+        return (f"layers_{m.group(1)}", m.group(2), leaf)
+    raise KeyError(f"unmapped CLIP key {key!r}")
 
 
 #: safetensors dtype names -> torch dtypes (the format's little-endian bytes)
 _ST_DTYPES = {"F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
               "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
               "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
+
+
+def read_file(path) -> bytearray:
+    """A file's bytes in one writable buffer (``torch.frombuffer`` views it
+    without a warning), read in place: the host holds the file once."""
+    path = Path(path)
+    buf = bytearray(path.stat().st_size)
+    with open(path, "rb") as f:
+        n = f.readinto(buf)
+    if n != len(buf):
+        raise ValueError(f"{path}: read {n} of {len(buf)} bytes")
+    return buf
 
 
 def load_safetensors(path) -> Dict[str, torch.Tensor]:
@@ -109,8 +181,12 @@ def load_safetensors(path) -> Dict[str, torch.Tensor]:
     ``__metadata__``), then the raw little-endian bytes, each tensor's at
     ``data_offsets`` from the end of the header.  A header whose offsets
     overrun the file, overlap each other or disagree with the shape, or
-    that names an unknown dtype, raises ``ValueError``."""
-    buf = bytearray(Path(path).read_bytes())
+    that names an unknown dtype, raises ``ValueError``.
+
+    Each tensor views the file's bytes (one buffer, held once on the host,
+    which the tensors keep alive); one whose bytes are not aligned to its
+    dtype is copied out."""
+    buf = read_file(path)
     if len(buf) < 8:
         raise ValueError(f"{path}: {len(buf)} bytes, too short for a safetensors header")
     n = int.from_bytes(buf[:8], "little")
@@ -138,8 +214,11 @@ def load_safetensors(path) -> Dict[str, torch.Tensor]:
             raise ValueError(f"{path}: {name} holds {end - begin} bytes, its shape {list(shape)} "
                              f"in {info['dtype']} needs {numel * dtype.itemsize}")
         spans.append((begin, end, name))
-        out[name] = (torch.frombuffer(buf, dtype=dtype, count=numel, offset=start + begin)
-                     .reshape(shape).clone() if numel else torch.empty(shape, dtype=dtype))
+        if not numel:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        t = torch.frombuffer(buf, dtype=dtype, count=numel, offset=start + begin).reshape(shape)
+        out[name] = t.clone() if (start + begin) % dtype.itemsize else t
     spans.sort()
     for (_, end, a), (begin, _, b) in zip(spans, spans[1:]):
         if begin < end:
@@ -156,5 +235,87 @@ def from_jax_params(params: Mapping, kind: str = "unet") -> Dict[str, torch.Tens
     out = {}
     for path, arr in _flatten(params).items():
         key = _clip_key(path) if kind == "clip" else _generic_key(path)
-        out[key] = torch.tensor(np.ascontiguousarray(_to_torch_layout(arr, path[-1])))
+        t = arr if isinstance(arr, torch.Tensor) else torch.tensor(arr)
+        out[key] = _to_torch_layout(t, path[-1]).contiguous()
     return out
+
+
+def to_jax_params(state_dict: Mapping[str, torch.Tensor], kind: str = "unet") -> dict:
+    """A torch state dict as the JAX package's flax parameter tree, the
+    inverse of :func:`from_jax_params`: the nesting of the JAX modules
+    (``down_blocks_0_attentions_0 / transformer_blocks_0 / attn1 / to_q /
+    kernel``), leaves ``kernel`` / ``scale`` / ``embedding``, Dense kernels
+    [in, out] and conv kernels HWIO.  Leaves are views of the state dict's
+    tensors where the layout allows it."""
+    if kind not in ("unet", "vae", "clip"):
+        raise ValueError(f"unknown kind {kind!r}")
+    tree: dict = {}
+    for key, t in state_dict.items():
+        path = _clip_path(key, t.ndim) if kind == "clip" else _generic_path(key, t.ndim)
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        if path[-1] in node:
+            raise ValueError(f"{key} and another key map to the same flax path {path}")
+        node[path[-1]] = _to_flax_layout(t, path[-1])
+    return tree
+
+
+@torch.no_grad()
+def load_state(module: torch.nn.Module, state: Mapping[str, object], strict: bool = True):
+    """Copy a torch-layout state dict into ``module``'s own parameters and
+    buffers, the counterpart of the JAX ``convert_state_dict``
+    (convert.py:103-134) with ``module.state_dict()`` as the template.
+
+    A key the module has and ``state`` lacks raises ``KeyError`` under
+    ``strict``; otherwise a warning is printed and the module keeps its
+    value.  A shape mismatch raises ``ValueError`` (before anything is
+    copied).  Extra keys in ``state`` are ignored (older CLIP files carry
+    ``text_model.embeddings.position_ids``).  Each tensor is cast to the
+    dtype of the parameter it lands in and copied there, on the module's
+    device, one tensor at a time.  Returns ``module``."""
+    template = module.state_dict()
+    missing = [k for k in template if k not in state]
+    if missing:
+        msg = f"{len(missing)} unmapped params, e.g. {missing[:5]}"
+        if strict:
+            raise KeyError(msg)
+        print(f"[convert] warning: {msg}; keeping template init for those", flush=True)
+    for key, dst in template.items():
+        if key in state and tuple(state[key].shape) != tuple(dst.shape):
+            raise ValueError(f"shape mismatch for {key}: ckpt {tuple(state[key].shape)} vs "
+                             f"model {tuple(dst.shape)}")
+    for key, dst in template.items():
+        if key in state:
+            src = state[key]
+            dst.copy_(src if isinstance(src, torch.Tensor) else torch.as_tensor(np.asarray(src)))
+    return module
+
+
+def load_safetensors_dir(directory) -> Dict[str, torch.Tensor]:
+    """Every ``*.safetensors`` under ``directory``, read in sorted order and
+    merged (``FileNotFoundError`` when there is none)."""
+    directory = Path(directory)
+    state: Dict[str, torch.Tensor] = {}
+    for f in sorted(directory.glob("*.safetensors")):
+        state.update(load_safetensors(f))
+    if not state:
+        raise FileNotFoundError(f"no .safetensors under {directory}")
+    return state
+
+
+def load_sd_checkpoint(model_dir, model, strict: bool = True):
+    """Load a diffusers-layout model directory into ``model`` (a
+    ``DiffusionModel``) in place, after the JAX ``load_sd_checkpoint``
+    (convert.py:177-208): ``unet/``, ``vae/`` and ``text_encoder/``, and
+    ``text_encoder_2/`` when the family has two encoders.  The port's
+    modules carry diffusers' and transformers' names, so each directory's
+    state dict loads as it is, through :func:`load_state`.  One directory is
+    held on the host at a time.  Returns ``model``."""
+    model_dir = Path(model_dir)
+    parts = [("unet", model.unet), ("vae", model.vae)]
+    parts += [("text_encoder" if i == 0 else f"text_encoder_{i + 1}", m)
+              for i, m in enumerate(model.text_models)]
+    for sub, module in parts:
+        load_state(module, load_safetensors_dir(model_dir / sub), strict)
+    return model

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from pathlib import Path
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -290,14 +289,9 @@ def load_rmbg_checkpoint(
     are taken when present, and other extra keys are ignored, as the JAX
     converter ignores them.  A directory without one raises
     ``FileNotFoundError``.  f32 only."""
-    from tml_image_editing_defense_torch.models.convert import load_safetensors
+    from tml_image_editing_defense_torch.models.convert import load_safetensors_dir
 
-    model_dir = Path(model_dir)
-    state = {}
-    for f in sorted(model_dir.glob("*.safetensors")):
-        state.update(load_safetensors(f))
-    if not state:
-        raise FileNotFoundError(f"no .safetensors under {model_dir}")
+    state = load_safetensors_dir(model_dir)
     device = resolve_device(device)
     _f32(dtype)
     with torch.device("meta"):

@@ -26,7 +26,11 @@ from tml_image_editing_defense_torch.models.clip_text import (
     TINY_TEXT,
     CLIPTextModel,
 )
-from tml_image_editing_defense_torch.models.tokenizer import HashTokenizer
+from tml_image_editing_defense_torch.models.tokenizer import (
+    HashTokenizer,
+    HFCLIPTokenizer,
+    load_tokenizer,
+)
 from tml_image_editing_defense_torch.models.unet import (
     SD15_INPAINT_UNET,
     SD15_UNET,
@@ -79,7 +83,7 @@ class DiffusionModel:
     unet: UNet2DCondition
     vae: AutoencoderKL
     text_models: Tuple[CLIPTextModel, ...]
-    tokenizers: Tuple[HashTokenizer, ...]
+    tokenizers: Tuple[Union[HashTokenizer, HFCLIPTokenizer], ...]
     schedule: NoiseSchedule
     device: torch.device
     #: the UNet's and the text encoders' dtype
@@ -194,6 +198,7 @@ def build_model(
     generator: Optional[torch.Generator] = None,
     attn_kv_chunk: Optional[int] = None,
     vae_dtype: Union[str, torch.dtype, None] = None,
+    tokenizer_paths: Optional[Sequence] = None,
 ) -> DiffusionModel:
     """Build a model bundle with random weights on ``device``.
 
@@ -204,6 +209,11 @@ def build_model(
     precision than the UNet and the text encoders, which take ``dtype``: the
     reference's f32 VAE beside a half-precision SDXL UNet
     (sdxl_img2img_pipeline.py:490-515; JAX model_zoo.py:296, 338-340).
+    ``tokenizer_paths``: one CLIP tokenizer directory per text encoder, the
+    list padded with None (the hash tokenizer) to the number of encoders,
+    as JAX model_zoo.py:343-352 pads it.  Real weights load over the built
+    model (``models/convert.py::load_sd_checkpoint``,
+    ``models/checkpoint_io.py::load_params``).
     """
     if family not in _FAMILIES:
         raise ValueError(f"unknown family {family!r}; have {sorted(_FAMILIES)}")
@@ -212,6 +222,8 @@ def build_model(
     vae_dtype = dtype if vae_dtype is None else set_numerics(vae_dtype)
     unet_cfg, vae_cfg, text_cfgs, native = _FAMILIES[family]
     image_size = image_size or native
+    tokenizer_paths = list(tokenizer_paths or [])
+    tokenizer_paths += [None] * (len(text_cfgs) - len(tokenizer_paths))
     unet_cfg = dataclasses.replace(unet_cfg, attn_kv_chunk=attn_kv_chunk)
     vae_cfg = dataclasses.replace(vae_cfg, attn_kv_chunk=attn_kv_chunk)
 
@@ -235,8 +247,8 @@ def build_model(
         unet=unet,
         vae=vae,
         text_models=texts,
-        tokenizers=tuple(HashTokenizer(vocab_size=c.vocab_size, max_length=c.max_length)
-                         for c in text_cfgs),
+        tokenizers=tuple(load_tokenizer(p, vocab_size=c.vocab_size, max_length=c.max_length)
+                         for p, c in zip(tokenizer_paths, text_cfgs)),
         schedule=make_noise_schedule(),
         device=device,
         dtype=dtype,

@@ -23,8 +23,9 @@ ReLU and Upsample entries take an index as in diffusers.  Conventions:
 - ``scaling_factor`` is 1.0: TAESD reads and writes latents in the UNet's
   scaled space.
 
-Real ``madebyollin/taesd[xl]`` weights come with the real-weight slice of
-the port; here the weights are random, from a ``torch.Generator``.
+:func:`build_tiny_autoencoder` makes random weights from a
+``torch.Generator``; :func:`load_taesd_checkpoint` reads a real
+``madebyollin/taesd[xl]`` directory.
 """
 
 from __future__ import annotations
@@ -184,3 +185,22 @@ def build_tiny_autoencoder(
         random_init_(module, generator)
     module.requires_grad_(False)
     return module.eval()
+
+
+def load_taesd_checkpoint(
+    model_dir,
+    dtype: Union[str, torch.dtype] = "float32",
+    device: Union[str, torch.device, None] = "cuda",
+) -> AutoencoderTiny:
+    """Load a ``madebyollin/taesd[xl]`` diffusers directory (the reference's
+    ``AutoencoderTiny.from_pretrained``, old/train_noise.py:82; JAX
+    tiny_vae.py:230-250): every ``*.safetensors`` under ``model_dir`` into
+    the ``"taesd"`` preset, every key required (``load_state(strict=True)``,
+    the 134 keys of tests/manifests/taesd_vae.json).  A directory without
+    one raises ``FileNotFoundError``."""
+    from tml_image_editing_defense_torch.models.convert import load_safetensors_dir, load_state
+
+    state = load_safetensors_dir(model_dir)
+    module = build_tiny_autoencoder("taesd", device="meta")
+    module.to_empty(device=resolve_device(device)).to(set_numerics(dtype))
+    return load_state(module, state, strict=True)

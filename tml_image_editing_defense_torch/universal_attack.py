@@ -5,7 +5,9 @@ package's ``examples/universal_attack.py``; reference C16,
 Trains one perturbation over a folder of images so that any covered image,
 once perturbed, resists 1-step LCM editing; the loss-side decode runs
 through the TAESD preview decoder (old/train_noise.py:82, 151) unless
-``--no-preview`` is given.  Random weights from ``--seed``.
+``--no-preview`` is given.  Random weights from ``--seed``, or the params
+bundle ``--params`` (``prepare_real_weights``) and the TAESD directory
+``--preview-params``.
 
     python -m tml_image_editing_defense_torch.universal_attack --family sd15 \\
         --dataset-dir images/ --steps 100
@@ -26,13 +28,6 @@ from typing import List, Optional
 
 import numpy as np
 import torch
-
-#: flags that come with later slices of the port
-_LATER = {
-    "params": "real-weight slice",
-    "preview_params": "real-weight slice",
-}
-
 
 @dataclass
 class UniversalRun:
@@ -75,11 +70,11 @@ def _parser() -> argparse.ArgumentParser:
                     help="save a [perturbed|source|validation] collage every k steps "
                          "(old/train_noise.py:196-214)")
     ap.add_argument("--params", type=Path, default=None,
-                    help="converted main-model weights (real-weight slice)")
+                    help="a params bundle from prepare_real_weights (either package's)")
     ap.add_argument("--no-preview", action="store_true",
                     help="decode the loss through the full VAE, not the TAESD preview")
     ap.add_argument("--preview-params", type=Path, default=None,
-                    help="a madebyollin/taesd[xl] directory (real-weight slice)")
+                    help="a madebyollin/taesd[xl] directory")
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
     return ap
@@ -87,10 +82,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> UniversalRun:
     args = _parser().parse_args(argv)
-    for name, slice_ in _LATER.items():
-        if getattr(args, name) is not None:
-            raise NotImplementedError(f"--{name.replace('_', '-')} comes with the {slice_} "
-                                      "of the port")
     if args.eot_shards > 1:
         raise NotImplementedError("--eot-shards above 1 comes with the multi-GPU slice of the "
                                   "port")
@@ -103,7 +94,10 @@ def main(argv=None) -> UniversalRun:
     from tml_image_editing_defense_torch.core.image_ops import to_pil
     from tml_image_editing_defense_torch.data import ImagePromptDataset
     from tml_image_editing_defense_torch.models.model_zoo import _FAMILIES, build_model
-    from tml_image_editing_defense_torch.models.tiny_vae import build_tiny_autoencoder
+    from tml_image_editing_defense_torch.models.tiny_vae import (
+        build_tiny_autoencoder,
+        load_taesd_checkpoint,
+    )
     from tml_image_editing_defense_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -114,6 +108,11 @@ def main(argv=None) -> UniversalRun:
     model = build_model(args.family, image_size=size, device=device, dtype=args.dtype,
                         generator=torch.Generator(device=device).manual_seed(args.seed),
                         attn_kv_chunk=_train_attn_chunk(size))
+    if args.params is not None:
+        # no dtype cast, as examples/universal_attack.py:89-93 loads it
+        from tml_image_editing_defense_torch.models.checkpoint_io import load_params
+
+        load_params(args.params, model)
 
     cfg_kw = dict(eps=args.eps, step_size=args.step_size, grad_reps=args.grad_reps,
                   epochs=args.epochs, max_steps=args.max_steps, image_size=size,
@@ -124,7 +123,9 @@ def main(argv=None) -> UniversalRun:
     cfg = UniversalConfig(**cfg_kw)
 
     preview = None
-    if not args.no_preview:
+    if not args.no_preview and args.preview_params is not None:
+        preview = load_taesd_checkpoint(args.preview_params, dtype=args.dtype, device=device)
+    elif not args.no_preview:
         # the preset by the main VAE's downsampling factor: "taesd" is 8x
         # (sd15, sdxl), "tiny" 2x (the test families); any other geometry
         # decodes through the full VAE
