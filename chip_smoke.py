@@ -19,12 +19,16 @@ Phases, each fatal on failure:
    [8, 4096, 8, 40] and [4, 4096, 1, 512], at the SDXL evaluation's
    [4, 4096, 10, 64] and [2, 16384, 1, 512] and at the SDXL universal
    attack's [2, 4096, 10, 64] and [1, 16384, 1, 512] in f32 and bf16 (the
-   bf16 SDXL 1024x1024 immunize's shapes); K1-K3 at ragged T (70..1000)
+   bf16 SDXL 1024x1024 immunize's shapes), at the batched immunization's
+   [6, 4096, 8, 40] and [3, 4096, 1, 512] in f32 and, in bf16, at
+   [4, 4096, 10, 64] and [2, 16384, 1, 512] (also the SDXL evaluation's
+   shapes in f32); K1-K3 at ragged T (70..1000)
    at every compiled head dim (40, 64, 80, 512: every tile plan of K2/K3)
    in f32 and bf16, and K1-K3's refusal of a misaligned tensor; the L2 PGD
    update K4 at [1, 3, 512, 512] with and without a 0/1 mask, at
    [8, 3, 512, 512] (per-sample norms) and in bf16 (within one bf16 ulp;
-   also at [1, 3, 1024, 1024]),
+   also at [1, 3, 1024, 1024]), at the batched paths' [3, 3, 512, 512] f32
+   and [2, 3, 1024, 1024] bf16, each bit-equal to one call per sample,
    at a ragged [2, 3, 33, 35], on misaligned views, on the eps-ball with
    the step outward and inward, with a zero gradient and an all-zero mask,
    two calls always bit-equal; the L-inf PGD update K5 at [1, 3, 512, 512]
@@ -98,6 +102,24 @@ Phases, each fatal on failure:
    every tensor of the model it built equal to the written one (bit for
    bit where no adapter touched it, the fused weights by the plain formula
    on the card), the prompt bank's ids equal the CPU tokenizer's;
+9c. batched immunization (b): ``cli.main(["immunize-batch", "--images",
+   ...])`` over 3 synthetic images at the ``TrainConfig`` defaults (SD-1.5
+   at 512x512, f32, L2, 10 reps, LCM K=4 -> 2 steps) for 2 iterations, the
+   images through the chain as one batch: finite losses, each image in its
+   own L2 ball and in [-1, 1], each ``<stem>/`` with its PNG and
+   ``noise.npz``, ``metrics.jsonl``; K1-K4 launched per iteration as on
+   path d (the count does not grow with the batch), each iteration's
+   seconds (``timed_steps``: synchronised at its end, as path d's steps)
+   and the peak; then one batched iteration of 2 reps against one
+   ``make_pgd_step`` iteration (the batch of one) per image on the same
+   draws (x_adv within 1e-3, losses within 1e-4 relative); one batched
+   iteration under ``torch.profiler``;
+9d. the sweep (s): ``cli.main(["sweep", ...])`` at the ``SweepConfig``
+   defaults over 2 synthetic images, grid 1 x 1, 1 iteration a cell, seed
+   0: the cells one after another on one model, each evaluated (LCM, 4
+   steps at strength 0.6, the ``INFERENCE_PROMPTS``); each cell's
+   artifacts and grids, one model built, K1-K4 launched as the code
+   implies, seconds per cell;
 10. evaluate: ``cli.main(["evaluate", ...])`` on the diffusion path's
    ``adversarial_image.png`` and ``noise.npz`` at the ``InferenceConfig``
    defaults (SD-1.5 at 512x512, f32, PLMS with 100 steps at strength 0.6:
@@ -148,14 +170,19 @@ Phases, each fatal on failure:
    with ``TrainConfig(use_sdxl=True, image_size=1024, dtype="bfloat16",
    remat_policy="full", remat_vae=True)`` (the JAX package's configuration,
    scripts/probe_sdxl_1024.py:134-140; 10 reps, LCM K=4 -> 2 UNet steps)
-   for 2 iterations, s/iteration from the second, with the diffusion
+   for 3 iterations, s/iteration after the first, with the diffusion
    path's checks, K1-K4 launched as ``pgd_launches`` predicts from the UNet
    config, the VAE mid-blocks and the remat recompute; one iteration under
    ``torch.profiler``; its useful FLOPs and their share of the bf16 peak;
    one bf16 iteration of 1 rep through K1-K4 against plain attention and
    the plain update on the same draws (the updates' L2 difference within
    ``XL1K_BF16_GATE`` of the update, beside the noise floor it measures);
-   then the kernels against plain attention on one f32 iteration of 1 rep
+   then ``api.immunize_batch`` on xl1k's model and config over 2 images
+   (b1k) for 3 iterations, with path b's checks, xl1k's launches per
+   iteration, each iteration's seconds (timed as xl1k's steps) and the
+   peak, and one batched
+   iteration under ``torch.profiler`` (device busy time, idle share); then
+   the kernels against plain attention on one f32 iteration of 1 rep
    at 1024x1024 with the same remat (within 1e-3 and 1e-4);
 16. a JSON line naming every kernel with its launches on every path, error
    and times, then the card's name and power limit, then the result line.
@@ -165,10 +192,12 @@ Phases, each fatal on failure:
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -211,10 +240,26 @@ UNIVERSAL_STEPS, UNIVERSAL_VIS_EVERY, UNIVERSAL_IMAGES, UNIVERSAL_SDXL_STEPS = 5
 UX_UNET_SHAPE, UX_VAE_SHAPE = (2, 4096, 10, 64), (1, 16384, 1, 512)
 #: SDXL immunize at its native 1024x1024 in bf16 (xl1k, the JAX package's
 #: scripts/probe_sdxl_1024.py configuration): remat "full" with remat_vae,
-#: 10 reps, 2 iterations; K1-K3 in bf16 at the universal-sdxl shapes (the
+#: 10 reps, 3 iterations; K1-K3 in bf16 at the universal-sdxl shapes (the
 #: UNet's 64x64 level for the CFG pair, the VAE mid-block), K4 in bf16 at
 #: the 1024x1024 image
-XL1K_SIZE, XL1K_ITERATIONS, XL1K_IMAGE_SHAPE = 1024, 2, (1, 3, 1024, 1024)
+XL1K_SIZE, XL1K_ITERATIONS, XL1K_IMAGE_SHAPE = 1024, 3, (1, 3, 1024, 1024)
+#: batched immunization (b): ``cli.main(["immunize-batch", ...])`` over
+#: BATCH_IMAGES images at the TrainConfig defaults (SD-1.5 512x512 f32) for
+#: BATCH_ITERATIONS iterations; K1-K3 at the UNet's 64x64 level for the
+#: images x CFG ([6, 4096, 8, 40]) and at the VAE mid-block for the images
+#: ([3, 4096, 1, 512]), K4 at [3, 3, 512, 512]
+BATCH_IMAGES, BATCH_ITERATIONS = 3, 2
+B_UNET_SHAPE, B_VAE_SHAPE = (2 * BATCH_IMAGES, 4096, 8, 40), (BATCH_IMAGES, 4096, 1, 512)
+B_IMAGE_SHAPE = (BATCH_IMAGES, 3, 512, 512)
+#: batched immunization at xl1k's configuration (b1k): B1K_IMAGES images of
+#: 1024x1024 in bf16 for XL1K_ITERATIONS iterations; K1-K3 in bf16 at
+#: [4, 4096, 10, 64] and [2, 16384, 1, 512] (the SDXL evaluation's shapes),
+#: K4 in bf16 at [2, 3, 1024, 1024]
+B1K_IMAGES = 2
+B1K_IMAGE_SHAPE = (B1K_IMAGES, 3, 1024, 1024)
+#: the sweep (s): SWEEP_IMAGES images, grid 1 x 1, one iteration per cell
+SWEEP_IMAGES = 2
 LINF = dict(step_size=0.006, eps=0.1, min_value=-1.0, max_value=1.0)
 L2 = dict(step_size=7.5, eps=32.0, min_value=-1.0, max_value=1.0)     # the TrainConfig defaults
 #: a write this large between two timed calls leaves none of their operands
@@ -650,7 +695,9 @@ K4_TIMED = (("f32", IMAGE_SHAPE, "float32", False, "random"),
             ("f32-mask", IMAGE_SHAPE, "float32", True, "random"),
             ("batch8-f32", ENC_IMAGE_SHAPE, "float32", False, "radii"),
             ("bf16", IMAGE_SHAPE, "bfloat16", False, "random"),
-            ("bf16-1024", XL1K_IMAGE_SHAPE, "bfloat16", False, "random"))
+            ("bf16-1024", XL1K_IMAGE_SHAPE, "bfloat16", False, "random"),
+            ("batch3-f32", B_IMAGE_SHAPE, "float32", False, "radii"),
+            ("batch2-bf16-1024", B1K_IMAGE_SHAPE, "bfloat16", False, "random"))
 RAGGED_L2 = (2, 3, 33, 35)          # H*W = 1155: no multiple of a vector or of a chunk
 ON_BALL_L2 = (2, 3, 512, 512)
 #: K4's further checks: (shape, dtype, mask, inputs, misaligned)
@@ -670,6 +717,26 @@ K4_CHECKS = (
     (ON_BALL_L2, "float32", False, "zero-grad", False),
     (ON_BALL_L2, "float32", True, "zero-mask", False),
 )
+
+
+def check_l2_slices(pk, gen, shape, dtype) -> dict:
+    """K4 on a batch against K4 on each of its samples alone: the batch's
+    per-sample norms make one launch the same function as one launch per
+    image (the JAX package ``vmap``s its kernel per image), so the outputs
+    must be equal bit for bit (each sample's sums run in a fixed order,
+    whether its batch's grid takes one kernel or two)."""
+    import torch
+
+    x, g, src, _ = l2_inputs(gen, shape, "radii", False)
+    x, g, src = (t.to(dtype) for t in (x, g, src))
+    whole = pk.pgd_l2_update(x, g, src, *L2.values())
+    parts = torch.cat([pk.pgd_l2_update(x[i:i + 1], g[i:i + 1], src[i:i + 1], *L2.values())
+                       for i in range(shape[0])])
+    torch.cuda.synchronize()
+    what = f"pgd_l2_update {list(shape)} {str(dtype).split('.')[-1]} against {shape[0]} single calls"
+    require(torch.equal(whole, parts), f"{what}: not bit-equal (max abs diff "
+                                       f"{max_err(whole, parts):.3e})")
+    return {"what": what, "bit_equal": True}
 
 
 def print_update(r: dict) -> None:
@@ -706,6 +773,10 @@ def check_updates(pk, gen) -> dict:
     for r in checks:
         print(f"[kernels] {r['what']}: max abs err {r['err']:.2e} (tol {r['tol']}); two calls "
               "bit-equal", flush=True)
+    slices = [check_l2_slices(pk, gen, shape, getattr(torch, dtype))
+              for shape, dtype in ((B_IMAGE_SHAPE, "float32"), (B1K_IMAGE_SHAPE, "bfloat16"))]
+    for r in slices:
+        print(f"[kernels] {r['what']}: bit-equal", flush=True)
     linf = {}
     for shape in (IMAGE_SHAPE, ENC_IMAGE_SHAPE):
         for dtype in (torch.float32, torch.bfloat16):
@@ -718,7 +789,7 @@ def check_updates(pk, gen) -> dict:
         check_linf(pk, gen, (1, 3, 33, 35), dtype, times=False, misaligned=True)
     print("[kernels] pgd_linf_update ragged [1, 3, 33, 35] with NaN in x, and misaligned views, "
           "agree (f32 bit-equal, bf16 within 4e-3)", flush=True)
-    return {"l2": l2, "l2_checks": checks, "linf": linf}
+    return {"l2": l2, "l2_checks": checks, "l2_slices": slices, "linf": linf}
 
 
 def one_iteration_inputs(model, cfg, source, target, mask=None):
@@ -960,8 +1031,9 @@ def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict, model=N
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    result = api.immunize(cfg, model=model)     # on the card: the default device
-    torch.cuda.synchronize()
+    with timed_steps([]) as step_s:
+        result = api.immunize(cfg, model=model)     # on the card: the default device
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {kern.symbol: kern.launches for kern in kernels}
     n = cfg.n_optimization_steps
@@ -992,6 +1064,7 @@ def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict, model=N
     # rows of vis iterations (0 and n-1) carry the host clock; between them
     # lie n-1 iterations and one vis decode
     return {"wall_s": wall, "s_per_iteration_after_first": (rows[n - 1]["t"] - rows[0]["t"]) / (n - 1),
+            "step_s": step_s, "step_s_after_first": after_first(step_s),
             "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
             "allocated_before_gb": before / 1e9,
             "history": result.history, "dist": dist, "launches": launches,
@@ -1622,6 +1695,19 @@ def path_flops(family: str, cfg, unet_steps: int, n_iterations: int, seconds: fl
     return flops_share(fwd, step + fwd["vae_decode"] / (n_iterations - 1), seconds, dtype)
 
 
+def batch_flops(family: str, cfg, unet_steps: int, images: int, seconds: float, dtype) -> dict:
+    """Useful model FLOPs of one batched iteration (``images`` images, no vis
+    decode) and their share of the card's peak for ``dtype`` over its
+    seconds."""
+    from tml_image_editing_defense_torch.utils import flops
+
+    fwd = flops.diffusion_model_flops(family, cfg.image_size)
+    image_loss = cfg.apply_loss_on_images or cfg.perturbation_loss_lambda > 0
+    step = flops.pgd_step_model_flops(unet_steps * fwd["unet"], fwd["vae_encode"],
+                                      fwd["vae_decode"], cfg.grad_reps, image_loss)
+    return flops_share(fwd, images * step, seconds, dtype)
+
+
 def flops_share(forward: dict, work: float, seconds: float, dtype) -> dict:
     """``work`` useful FLOPs done in ``seconds`` as a share of the card's
     peak for ``dtype`` (``utils.flops.mfu``), beside the forward counts it
@@ -1998,6 +2084,259 @@ def free_card(held: Optional[dict] = None, after: str = "") -> None:
         require(gb <= HELD_LIMIT_GB, f"{gb:.2f} GB stay allocated after the {after} path")
 
 
+@contextlib.contextmanager
+def timed_steps(times: list):
+    """While the block runs, ``attack.pgd.make_batched_pgd_step`` (which the
+    one-image ``make_pgd_step`` wraps as a batch of one) makes steps that
+    each end in a ``torch.cuda.synchronize()`` and append their seconds on
+    the host clock to ``times``: one image's and a batch's iterations timed
+    alike, with no vis decode (the losses stay on the device, as in the
+    loop)."""
+    import torch
+
+    from tml_image_editing_defense_torch.attack import pgd
+
+    make = pgd.make_batched_pgd_step
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    pgd.make_batched_pgd_step = timed_make
+    try:
+        yield times
+    finally:
+        pgd.make_batched_pgd_step = make
+
+
+def after_first(times: list) -> Optional[float]:
+    """The median of the step times after the first (the first builds the
+    cuDNN plans of its shapes); None with fewer than two."""
+    return statistics.median(times[1:]) if len(times) > 1 else None
+
+
+def require_split(path: str, at_shape: dict, launches: dict) -> None:
+    """The launches split by shape add up to the path's counts."""
+    for sym in ("tid_flash_fwd", "tid_flash_bwd_kv", "tid_flash_bwd_q"):
+        total = sum(v if isinstance(v, int) else v.get(sym, 0) for part, v in at_shape.items()
+                    if sym == "tid_flash_fwd" or not isinstance(v, int))
+        require(total == launches[sym], (f"{path} launches by shape", sym, at_shape, launches))
+
+
+def batch_checks(results, cfg, paths, out_dir: Path) -> dict:
+    """Every image of an ``immunize_batch`` run: finite losses, one per
+    iteration, the iterate in its own L2 ball around its source and in
+    [-1, 1], ``<stem>/adversarial_image.png`` and ``noise.npz`` written,
+    and the batch's ``metrics.jsonl`` with one row per image."""
+    import torch
+
+    from tml_image_editing_defense_torch.core.image_ops import load_image
+
+    require(len(results) == len(paths), (len(results), len(paths)))
+    dists = []
+    for path, r in zip(paths, results):
+        src = torch.from_numpy(load_image(path, cfg.image_size)).cuda().to(r.x_adv.dtype)
+        dist = torch.linalg.vector_norm(r.x_adv.float() - src.float()).item()
+        require(dist <= cfg.eps + 1e-3, f"{path.name}: |x_adv - src|_2 = {dist} over eps")
+        require(-1.0 <= r.x_adv.min().item() and r.x_adv.max().item() <= 1.0,
+                f"{path.name}: x_adv left [-1, 1]")
+        require(len(r.history) == cfg.n_optimization_steps
+                and all(math.isfinite(h["avg_loss"]) for h in r.history), r.history)
+        for name in ("adversarial_image.png", "noise.npz"):
+            require((out_dir / path.stem / name).is_file(), f"missing {path.stem}/{name}")
+        dists.append(dist)
+    rows = (out_dir / "metrics.jsonl").read_text().splitlines()
+    require(len(rows) == len(paths), rows)
+    return {"dist": dists, "history": [[h["avg_loss"] for h in r.history] for r in results]}
+
+
+def batched_inputs(model, cfg, paths, seeds):
+    """One batched iteration's inputs drawn as ``immunize_batch`` draws them
+    with ``seeds``: (sampler, plan, the per-image AttackData, the batched
+    AttackData, each image's first-iteration draws)."""
+    import torch
+
+    from tml_image_editing_defense_torch.attack.pgd import (
+        iteration_generator,
+        make_attack_data,
+        sample_draws,
+    )
+    from tml_image_editing_defense_torch.configs import format_prompt
+    from tml_image_editing_defense_torch.core.image_ops import load_image
+    from tml_image_editing_defense_torch.core.rng import SETUP_STREAM, stream_generator
+    from tml_image_editing_defense_torch.core.samplers import make_sampler
+    from tml_image_editing_defense_torch.parallel.sweep import batch_attack_data
+
+    dtype = model.dtype
+    sampler = make_sampler("lcm", model.schedule)
+    plan = sampler.plan(cfg.n_denoising_steps_per_iteration, limit_t=700)
+    bank = model.embed_prompt_bank([format_prompt(p) for p in cfg.prompts])
+    lat = model.latent_shape
+    datas, draws = [], []
+    for path, seed in zip(paths, seeds):
+        img = torch.from_numpy(load_image(path, cfg.image_size)).cuda().to(dtype)
+        setup = stream_generator(seed, SETUP_STREAM, "cuda")
+        pool = torch.randn((1, *lat), generator=setup, device="cuda", dtype=dtype)
+        eps = torch.randn(lat, generator=setup, device="cuda", dtype=dtype)
+        datas.append(make_attack_data(model, cfg, img, img, bank, pool, target_latent_eps=eps))
+        draws.append(sample_draws(iteration_generator(seed, 0, "cuda"), cfg, len(cfg.prompts), 1,
+                                  lat, plan.num_steps, dtype))
+    return sampler, plan, datas, batch_attack_data(datas), draws
+
+
+def batch_gate(model, cfg, paths) -> dict:
+    """One ``make_batched_pgd_step`` iteration of ``cfg`` with 2 reps on the
+    images ``paths`` against one ``make_pgd_step`` iteration per image on
+    the same data and draws, all through the kernels: each image's iterate
+    within 1e-3 and its mean loss within a relative 1e-4 (path d's bounds:
+    the batch's convolutions sum in another order, and cuDNN's gradients
+    are not deterministic)."""
+    import dataclasses
+
+    from tml_image_editing_defense_torch.attack.pgd import make_pgd_step
+    from tml_image_editing_defense_torch.parallel import sweep as psweep
+
+    gcfg = dataclasses.replace(cfg, derive_norm_hyperparams=False, grad_reps=2)
+    sampler, plan, datas, batched, draws = batched_inputs(model, gcfg, paths,
+                                                         range(50, 50 + len(paths)))
+    x_b, aux_b = psweep.make_batched_pgd_step(model, sampler, plan, gcfg)(
+        batched.source[:, 0], batched, draws)
+    single = make_pgd_step(model, sampler, plan, gcfg, decode_vis=False)
+    x_diff, loss_rel = [], []
+    for i, (data, d) in enumerate(zip(datas, draws)):
+        x_i, aux_i = single(data.source, data, d)
+        x_diff.append(max_err(x_b[i:i + 1], x_i))
+        loss_rel.append(abs(aux_b["avg_loss"][i].item() - aux_i["avg_loss"].item())
+                        / abs(aux_i["avg_loss"].item()))
+    out = {"images": len(paths), "grad_reps": gcfg.grad_reps, "x_adv_max_abs_diff": max(x_diff),
+           "avg_loss_rel_diff": max(loss_rel), "per_image_x_diff": x_diff}
+    require(out["x_adv_max_abs_diff"] <= 1e-3 and out["avg_loss_rel_diff"] <= 1e-4,
+            f"batched iteration against one iteration per image: {out}")
+    return out
+
+
+def batch_path(run, api, kernels, cfg, paths, out_dir: Path, per_iteration: dict,
+               outside: dict) -> dict:
+    """``run()`` (an ``immunize_batch`` call through an entry point) on the
+    card with every count set to 0 just before it and read just after; the
+    launches must be ``per_iteration`` times the iterations plus
+    ``outside``, and every image must pass :func:`batch_checks`.  Each
+    iteration's seconds come from :func:`timed_steps`."""
+    import torch
+
+    captured, times = [], []
+    real_batch = api.immunize_batch
+
+    def spy(*a, **k):
+        captured.append(real_batch(*a, **k))
+        return captured[-1]
+
+    for kern in kernels:
+        kern.launches = 0
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    api.immunize_batch = spy
+    t0 = time.perf_counter()
+    try:
+        with timed_steps(times):
+            run()
+            torch.cuda.synchronize()
+    finally:
+        api.immunize_batch = real_batch
+    wall = time.perf_counter() - t0
+    launches = {kern.symbol: kern.launches for kern in kernels}
+    n = cfg.n_optimization_steps
+    expected = {kern.symbol: n * per_iteration.get(kern.symbol, 0) + outside.get(kern.symbol, 0)
+                for kern in kernels}
+    require(launches == expected, ("batch", launches, expected))
+    (results,) = captured
+    out = batch_checks(results, cfg, paths, out_dir)
+    require(len(times) == n, times)
+    out.update(wall_s=wall, s_per_iteration=times,
+               s_per_iteration_after_first=after_first(times), images=len(paths),
+               s_per_image_iteration=after_first(times) / len(paths),
+               max_memory_allocated_gb=(torch.cuda.max_memory_allocated() - before) / 1e9,
+               allocated_before_gb=before / 1e9, launches=launches,
+               expected_launches=expected, per_iteration_launches=per_iteration,
+               _results=results)
+    return out
+
+
+def sweep_path(cli, api, kernels, images_dir: Path, out_root: Path, per_cell: dict) -> dict:
+    """``cli.main(["sweep", ...])`` at the SweepConfig defaults over the
+    images of ``images_dir``, grid 1 x 1, one iteration per cell, seed 0:
+    the cells run one after another on one model (``api._cfg_model`` is
+    called once), each cell's artifacts and evaluation grids under
+    ``<stem>/n_noises_1/n_prompts_1``; every count set to 0 just before and
+    read just after, and equal to ``per_cell`` times the cells."""
+    import torch
+    from PIL import Image
+
+    from tml_image_editing_defense_torch.configs import INFERENCE_PROMPTS, format_prompt
+
+    builds, seconds = [], {"immunize": [], "evaluate": []}
+    real = {name: getattr(api, name) for name in ("_cfg_model", "immunize", "evaluate")}
+
+    def counting(*a, **k):
+        builds.append(1)
+        return real["_cfg_model"](*a, **k)
+
+    def timed(name):
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            out = real[name](*a, **k)
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for kern in kernels:
+        kern.launches = 0
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    api._cfg_model, api.immunize, api.evaluate = counting, timed("immunize"), timed("evaluate")
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["sweep", "--images-dir", str(images_dir), "--output-root", str(out_root),
+                       "--n-prompts-grid", "1", "--n-noises-grid", "1",
+                       "--n-optimization-steps", "1", "--seed", "0"])
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(api, name, fn)
+    wall = time.perf_counter() - t0
+    require(rc == 0, f"sweep exited {rc}")
+    launches = {kern.symbol: kern.launches for kern in kernels}
+    stems = sorted(p.stem for p in images_dir.iterdir())
+    expected = {kern.symbol: len(stems) * per_cell.get(kern.symbol, 0) for kern in kernels}
+    require(launches == expected, ("sweep", launches, expected))
+    require(len(builds) == 1, f"{len(builds)} models built for the sweep")
+    names = {"-".join(format_prompt(p)[:30].split()) + "_noise_0.png" for p in INFERENCE_PROMPTS}
+    for stem in stems:
+        cell = out_root / stem / "n_noises_1" / "n_prompts_1"
+        for name in ("adversarial_image.png", "noise.npz", "metrics.jsonl"):
+            require((cell / name).is_file(), f"missing {stem}/.../{name}")
+        grids = {p.name for p in cell.glob("*_noise_0.png")}
+        require(grids == names, (stem, sorted(grids)))
+        with Image.open(cell / sorted(grids)[0]) as g:
+            require(g.size[0] == 5 * 512, g.size)
+    cells = [i + e for i, e in zip(seconds["immunize"], seconds["evaluate"])]
+    return {"wall_s": wall, "cells": len(stems), "s_per_cell": cells,
+            "immunize_s": seconds["immunize"], "evaluate_s": seconds["evaluate"],
+            "grids_per_cell": len(names), "models_built": len(builds),
+            "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
+            "allocated_before_gb": before / 1e9, "launches": launches,
+            "expected_launches": expected, "per_cell_launches": per_cell}
+
+
 def main(argv) -> int:
     import argparse
     import dataclasses
@@ -2051,8 +2390,9 @@ def main(argv) -> int:
                           (VAE_SHAPE, (torch.float32, torch.bfloat16)),
                           (ENC_ATTN_SHAPE, (torch.float32,)),
                           (EVAL_UNET_SHAPE, (torch.float32,)), (EVAL_VAE_SHAPE, (torch.float32,)),
-                          (SDXL_EVAL_UNET_SHAPE, (torch.float32,)),
-                          (SDXL_EVAL_VAE_SHAPE, (torch.float32,)),
+                          (SDXL_EVAL_UNET_SHAPE, (torch.float32, torch.bfloat16)),
+                          (SDXL_EVAL_VAE_SHAPE, (torch.float32, torch.bfloat16)),
+                          (B_UNET_SHAPE, (torch.float32,)), (B_VAE_SHAPE, (torch.float32,)),
                           (UX_UNET_SHAPE, (torch.float32, torch.bfloat16)),
                           (UX_VAE_SHAPE, (torch.float32, torch.bfloat16))):
         for dtype in dtypes:
@@ -2112,7 +2452,9 @@ def main(argv) -> int:
         report["main_path"] = diff
         print(f"[main] immunize sd15 512x512 f32, {ITERATIONS} iterations x {cfg.grad_reps} reps: "
               f"{diff['wall_s']:.1f} s in all, {diff['s_per_iteration_after_first']:.2f} "
-              f"s/iteration after the first, peak {diff['max_memory_allocated_gb']:.1f} GB; losses "
+              f"s/iteration after the first; steps "
+              + ", ".join(f"{t:.2f}" for t in diff["step_s"]) + " s (timed alone); "
+              f"peak {diff['max_memory_allocated_gb']:.1f} GB; losses "
               f"{[round(h['avg_loss'], 4) for h in diff['history']]}; |x_adv - src|_2 = "
               f"{diff['dist']:.3f} <= {cfg.eps}; launches {diff['launches']}", flush=True)
 
@@ -2252,6 +2594,116 @@ def main(argv) -> int:
         rw["flops"] = fl = path_flops("sd15", cfg, d_steps, REAL_ITERATIONS,
                                       rw["s_per_iteration_after_first"], torch.float32)
         print_flops("real-weights", fl)
+
+        # ---- batched immunization (b), through the CLI ------------------------
+        # immunize-batch over BATCH_IMAGES images at the TrainConfig defaults:
+        # the images run through the chain as one batch, so per iteration K1-K3
+        # launch as on path d (the shared encode and per rep 2 UNet calls x 5
+        # long self-attentions and a decode, now of 3 images each) and K4
+        # once, whatever the batch; outside the loop, each image's target
+        # encode (a forward at batch 1).  No vis decodes.
+        from tml_image_editing_defense_torch.parallel import sweep as psweep
+
+        b_paths = []
+        for i in range(BATCH_IMAGES):
+            synthetic_image(tmp / f"batch{i}.png", 300 + i)
+            b_paths.append(tmp / f"batch{i}.png")
+        b_out = tmp / "out_batch"
+        bcfg = TrainConfig(n_optimization_steps=BATCH_ITERATIONS, output_path=b_out)
+        b_per_it = pgd_launches(SD15_UNET, bcfg, d_steps)
+        bt0 = time.perf_counter()
+        bp = batch_path(
+            lambda: cli.main(["immunize-batch", "--images", *map(str, b_paths),
+                              "--n-optimization-steps", str(BATCH_ITERATIONS),
+                              "--output-path", str(b_out)]),
+            api, kernels, bcfg, b_paths, b_out, b_per_it,
+            {"tid_flash_fwd": BATCH_IMAGES})
+        results = bp.pop("_results")
+        unet_n = BATCH_ITERATIONS * bcfg.grad_reps * d_steps * long_attn
+        vae_n = BATCH_ITERATIONS * (bcfg.grad_reps + 1)
+        bp["launches_at_shape"] = {
+            "unet": {"tid_flash_fwd": unet_n, "tid_flash_bwd_kv": unet_n, "tid_flash_bwd_q": unet_n},
+            "vae": {"tid_flash_fwd": vae_n, "tid_flash_bwd_kv": vae_n, "tid_flash_bwd_q": vae_n},
+            "target_encodes": {"tid_flash_fwd": BATCH_IMAGES}}
+        # path d's launches an iteration: its counts less the target encode and vis decodes
+        d_per_it = {k: (v - (1 + n_vis if k == "tid_flash_fwd" else 0)) // ITERATIONS
+                    for k, v in diff["expected_launches"].items() if v}
+        require(b_per_it == d_per_it, ("path b's launches an iteration against path d's",
+                                       b_per_it, d_per_it))
+        require_split("batch", bp["launches_at_shape"], bp["launches"])
+        report["batch_path"] = bp
+        print(f"[batch] immunize-batch sd15 512x512 f32, {BATCH_IMAGES} images x "
+              f"{BATCH_ITERATIONS} iterations x {bcfg.grad_reps} reps: {bp['wall_s']:.1f} s in "
+              f"all (model build included), iterations "
+              + ", ".join(f"{t:.2f}" for t in bp["s_per_iteration"]) + " s; "
+              f"{bp['s_per_iteration_after_first']:.2f} s after the first, "
+              f"{bp['s_per_image_iteration']:.2f} s an image (path d's steps timed alike: "
+              f"{diff['step_s_after_first']:.2f} s); peak "
+              f"{bp['max_memory_allocated_gb']:.2f} GB above the "
+              f"{bp['allocated_before_gb']:.2f} GB allocated before; losses {bp['history']}; "
+              f"|x_adv - src|_2 = {[round(d, 3) for d in bp['dist']]} <= {bcfg.eps}; launches "
+              f"{bp['launches']} (per iteration {b_per_it}, path d's: it does not scale with "
+              f"the batch)", flush=True)
+        gate = report["batch_vs_single"] = batch_gate(results[0].model, TrainConfig(), b_paths)
+        print(f"[gate] one batched SD-1.5 512x512 iteration of {gate['images']} images x "
+              f"{gate['grad_reps']} reps against one make_pgd_step iteration per image on the "
+              f"same draws: |x_adv diff|_max = {gate['x_adv_max_abs_diff']:.2e} <= 1e-3, "
+              f"avg_loss {gate['avg_loss_rel_diff']:.1e} relative <= 1e-4", flush=True)
+        bp["flops"] = fl = batch_flops("sd15", bcfg, d_steps, BATCH_IMAGES,
+                                       bp["s_per_iteration_after_first"], torch.float32)
+        print_flops("batch", fl)
+        # one batched iteration under the profiler: the path ran these shapes
+        # just before, so no warm-up
+        bsampler, bplan, _, bbatched, bdraws = batched_inputs(results[0].model, bcfg, b_paths,
+                                                              (70, 71, 72)[:BATCH_IMAGES])
+        bstep = psweep.make_batched_pgd_step(results[0].model, bsampler, bplan, bcfg)
+        report["batch_profile"] = profile_call(
+            lambda: bstep(bbatched.source[:, 0], bbatched, bdraws))
+        print_profile(f"batched SD-1.5 512x512 f32 PGD iteration of {BATCH_IMAGES} images",
+                      report["batch_profile"])
+        del results, bbatched, bdraws, bstep
+        free_card(held, "batch")
+        bp["phase_s"] = time.perf_counter() - bt0
+        print(f"[batch] phase b in {bp['phase_s']:.1f} s", flush=True)
+
+        # ---- the sweep (s), through the CLI ------------------------------------
+        # Per cell: immunize for 1 iteration (path d's launches, the target
+        # encode and the vis decode of iteration 0), then evaluate at the
+        # SweepConfig defaults (LCM, 4 steps at strength 0.6, the
+        # INFERENCE_PROMPTS with the cell's one noise, 2 cells a batch):
+        # per batch K1 in the encode, the decode and each UNet call's 5 long
+        # self-attentions, forward only.
+        from tml_image_editing_defense_torch.configs import INFERENCE_PROMPTS
+
+        s_dir = tmp / "sweep_images"
+        s_dir.mkdir()
+        for i in range(SWEEP_IMAGES):
+            synthetic_image(s_dir / f"s{i}.png", 400 + i)
+        s_steps = LCMSampler(make_noise_schedule()).plan(4, strength=0.6).num_steps
+        s_batches = math.ceil(len(INFERENCE_PROMPTS) / EVAL_BATCH)
+        d_it = pgd_launches(SD15_UNET, cfg, d_steps)
+        s_eval = s_batches * (s_steps * long_attn + 2)
+        s_cell = dict(d_it, tid_flash_fwd=d_it["tid_flash_fwd"] + 2 + s_eval)
+        sw = report["sweep_path"] = sweep_path(cli, api, kernels, s_dir, tmp / "out_sweep", s_cell)
+        sw["k1_launches_at_shape"] = {"eval_unet": SWEEP_IMAGES * s_batches * s_steps * long_attn,
+                                      "eval_vae": SWEEP_IMAGES * s_batches * 2}
+        sw["launches_at_shape"] = {
+            "unet": {k: SWEEP_IMAGES * d_steps * cfg.grad_reps * long_attn
+                     for k in ("tid_flash_fwd", "tid_flash_bwd_kv", "tid_flash_bwd_q")},
+            "vae": {k: SWEEP_IMAGES * (cfg.grad_reps + 1 + (2 if k == "tid_flash_fwd" else 0))
+                    for k in ("tid_flash_fwd", "tid_flash_bwd_kv", "tid_flash_bwd_q")}}
+        require_split("sweep", {**sw["launches_at_shape"], **sw["k1_launches_at_shape"]},
+                      sw["launches"])
+        print(f"[sweep] sweep sd15 512x512 f32 over {sw['cells']} images, grid 1 x 1, 1 iteration "
+              f"a cell, evaluated with LCM {s_steps} UNet calls an edit over "
+              f"{sw['grids_per_cell']} prompts ({s_batches} batches of {EVAL_BATCH} pairs): "
+              f"{sw['wall_s']:.1f} s in all (one model built: {sw['models_built']}); a cell "
+              + ", ".join(f"{t:.2f}" for t in sw["s_per_cell"]) + " s (immunize "
+              + ", ".join(f"{t:.2f}" for t in sw["immunize_s"]) + ", evaluate "
+              + ", ".join(f"{t:.2f}" for t in sw["evaluate_s"]) + f"); peak "
+              f"{sw['max_memory_allocated_gb']:.2f} GB; launches {sw['launches']} (per cell "
+              f"{s_cell})", flush=True)
+        free_card(held, "sweep")
 
         # ---- the inpaint path ---------------------------------------------
         # Per iteration: 5 reps x (1 encode + 3 UNet calls x 5 long
@@ -2500,8 +2952,10 @@ def main(argv) -> int:
         report["sdxl_1024_path"] = x1
         print(f"[sdxl-1024] immunize sdxl {XL1K_SIZE}x{XL1K_SIZE} bf16, remat full + remat_vae, "
               f"{XL1K_ITERATIONS} iterations x {x1cfg.grad_reps} reps: {x1['wall_s']:.1f} s in "
-              f"all (model build included), {x1['s_per_iteration_after_first']:.2f} s for the "
-              f"second iteration, peak {x1['max_memory_allocated_gb']:.2f} GB above the "
+              f"all (model build included), {x1['s_per_iteration_after_first']:.2f} s an "
+              f"iteration after the first; steps "
+              + ", ".join(f"{t:.2f}" for t in x1["step_s"]) + " s (timed alone); "
+              f"peak {x1['max_memory_allocated_gb']:.2f} GB above the "
               f"{x1['allocated_before_gb']:.2f} GB allocated before (the model built in the "
               f"path); losses {[round(h['avg_loss'], 4) for h in x1['history']]}; |x_adv - "
               f"src|_2 = {x1['dist']:.3f} <= {x1cfg.eps}; launches per iteration {x1_per_it} "
@@ -2514,6 +2968,56 @@ def main(argv) -> int:
         x1["flops"] = fl = path_flops("sdxl", x1cfg, d_steps, XL1K_ITERATIONS,
                                       x1["s_per_iteration_after_first"], torch.bfloat16)
         print_flops("sdxl-1024", fl)
+
+        # ---- batched immunization at xl1k's configuration (b1k) ---------------
+        # api.immunize_batch on xl1k's model and config over B1K_IMAGES images
+        # of 1024x1024: per iteration the launches of xl1k (pgd_launches), each
+        # of B1K_IMAGES times the work; outside, the images' target encodes
+        b1t0 = time.perf_counter()
+        b1_paths = [xl_images["paths"]["source"], xl_images["paths"]["target"]][:B1K_IMAGES]
+        b1cfg = dataclasses.replace(x1cfg, output_path=tmp / "out_batch_1024")
+        b1 = batch_path(lambda: api.immunize_batch(b1cfg, b1_paths, model=result.model),
+                        api, kernels, b1cfg, b1_paths, b1cfg.output_path, x1_per_it,
+                        {"tid_flash_fwd": B1K_IMAGES})
+        b1.pop("_results")
+        b1["launches_at_shape"] = {
+            "unet": x1["launches_at_shape"]["unet"],
+            "vae": {k: v - (1 + len({0, XL1K_ITERATIONS - 1})) if k == "tid_flash_fwd" else v
+                    for k, v in x1["launches_at_shape"]["vae"].items()},
+            "target_encodes": {"tid_flash_fwd": B1K_IMAGES}}
+        require_split("batch-1024", b1["launches_at_shape"], b1["launches"])
+        report["batch_1024_path"] = b1
+        print(f"[batch-1024] immunize_batch sdxl {XL1K_SIZE}x{XL1K_SIZE} bf16, remat full + "
+              f"remat_vae, {B1K_IMAGES} images x {XL1K_ITERATIONS} iterations x "
+              f"{b1cfg.grad_reps} reps on xl1k's model: {b1['wall_s']:.1f} s in all, "
+              f"iterations " + ", ".join(f"{t:.2f}" for t in b1["s_per_iteration"]) + " s; "
+              f"{b1['s_per_iteration_after_first']:.2f} s after the first (median), "
+              f"{b1['s_per_image_iteration']:.2f} s an image (xl1k's steps timed alike: "
+              f"{x1['step_s_after_first']:.2f} s); peak "
+              f"{b1['max_memory_allocated_gb']:.2f} GB above the "
+              f"{b1['allocated_before_gb']:.2f} GB allocated before; losses {b1['history']}; "
+              f"|x_adv - src|_2 = {[round(d, 3) for d in b1['dist']]} <= {b1cfg.eps}; "
+              f"launches {b1['launches']} (per iteration xl1k's {x1_per_it})", flush=True)
+        # one batched iteration under the profiler: the path ran these shapes
+        # just before, so no warm-up
+        b1sampler, b1plan, _, b1batched, b1draws = batched_inputs(result.model, b1cfg, b1_paths,
+                                                                  (60, 61)[:B1K_IMAGES])
+        b1step = psweep.make_batched_pgd_step(result.model, b1sampler, b1plan, b1cfg)
+        report["batch_1024_profile"] = profile_call(
+            lambda: b1step(b1batched.source[:, 0], b1batched, b1draws))
+        print_profile(f"batched SDXL 1024x1024 bf16 PGD iteration of {B1K_IMAGES} images",
+                      report["batch_1024_profile"])
+        b1["flops"] = fl = batch_flops("sdxl", b1cfg, d_steps, B1K_IMAGES,
+                                       b1["s_per_iteration_after_first"], torch.bfloat16)
+        print_flops("batch-1024", fl)
+        del b1batched, b1draws, b1step
+        free_card()
+        b1["held_above_start_gb"] = torch.cuda.memory_allocated() / 1e9 - b1["allocated_before_gb"]
+        require(b1["held_above_start_gb"] <= HELD_LIMIT_GB,
+                f"{b1['held_above_start_gb']:.2f} GB stay allocated after path b1k")
+        b1["phase_s"] = time.perf_counter() - b1t0
+        print(f"[batch-1024] phase b1k in {b1['phase_s']:.1f} s (immunize_batch, the profile); "
+              f"{b1['held_above_start_gb']:.3f} GB held above its start", flush=True)
         # the kernels against plain attention in bf16, one iteration of 1 rep
         # on the same draws, against the bound set from the noise floor
         g16cfg = dataclasses.replace(x1cfg, derive_norm_hyperparams=False, grad_reps=1,
@@ -2591,19 +3095,34 @@ def kernel_rows(flash, updates, report) -> list:
                 "universal": report["universal_path"]["launches"],
                 "universal-sdxl": report["universal_sdxl_path"]["launches"],
                 "sdxl-1024": report["sdxl_1024_path"]["launches"],
-                "real-weights": report["real_weights_path"]["launches"]}
+                "real-weights": report["real_weights_path"]["launches"],
+                "batch": report["batch_path"]["launches"],
+                "batch-1024": report["batch_1024_path"]["launches"],
+                "sweep": report["sweep_path"]["launches"]}
     by_path = lambda sym: {path: counts[sym] for path, counts in launches.items()}  # noqa: E731
     at_shape = {(path, shape): report[f"{path.replace('-', '_')}_path"]["k1_launches_at_shape"][part]
                 for path, (unet, vae) in (("evaluate", (EVAL_UNET_SHAPE, EVAL_VAE_SHAPE)),
                                           ("sdxl-evaluate", (SDXL_EVAL_UNET_SHAPE,
                                                              SDXL_EVAL_VAE_SHAPE)))
                 for part, shape in (("unet", unet), ("vae", vae))}
+    # the sweep's evaluations (forward only), and the batched paths' target
+    # encodes at batch 1 (forward only)
+    at_shape.update({("sweep", EVAL_UNET_SHAPE): report["sweep_path"]["k1_launches_at_shape"][
+                         "eval_unet"],
+                     ("sweep", EVAL_VAE_SHAPE): report["sweep_path"]["k1_launches_at_shape"][
+                         "eval_vae"],
+                     ("batch", VAE_SHAPE): BATCH_IMAGES,
+                     ("batch-1024", UX_VAE_SHAPE): B1K_IMAGES})
     # the universal paths and xl1k run forward and backward: launches at each
     # shape by kernel
     by_shape = {(path, shape): report[f"{path.replace('-', '_')}_path"]["launches_at_shape"][part]
                 for path, (unet, vae) in (("universal", (UNET_SHAPE, VAE_SHAPE)),
                                           ("universal-sdxl", (UX_UNET_SHAPE, UX_VAE_SHAPE)),
-                                          ("sdxl-1024", (UX_UNET_SHAPE, UX_VAE_SHAPE)))
+                                          ("sdxl-1024", (UX_UNET_SHAPE, UX_VAE_SHAPE)),
+                                          ("batch", (B_UNET_SHAPE, B_VAE_SHAPE)),
+                                          ("batch-1024", (SDXL_EVAL_UNET_SHAPE,
+                                                          SDXL_EVAL_VAE_SHAPE)),
+                                          ("sweep", (UNET_SHAPE, VAE_SHAPE)))
                 for part, shape in (("unet", unet), ("vae", vae))}
     rows = []
     for path, shape in (("diffusion", UNET_SHAPE), ("real-weights", UNET_SHAPE),
@@ -2611,8 +3130,10 @@ def kernel_rows(flash, updates, report) -> list:
                         ("encoder", ENC_ATTN_SHAPE), ("evaluate", EVAL_UNET_SHAPE),
                         ("evaluate", EVAL_VAE_SHAPE), ("sdxl", VAE_SHAPE),
                         ("sdxl-evaluate", SDXL_EVAL_UNET_SHAPE),
-                        ("sdxl-evaluate", SDXL_EVAL_VAE_SHAPE), *by_shape):
-        dtype = "bfloat16" if path == "sdxl-1024" else "float32"
+                        ("sdxl-evaluate", SDXL_EVAL_VAE_SHAPE), *by_shape,
+                        ("sweep", EVAL_UNET_SHAPE), ("sweep", EVAL_VAE_SHAPE),
+                        ("batch", VAE_SHAPE), ("batch-1024", UX_VAE_SHAPE)):
+        dtype = "bfloat16" if path in ("sdxl-1024", "batch-1024") else "float32"
         r = flash[f"{shape}-{dtype}"]
         for name, sym, key, line in (("flash_fwd", "tid_flash_fwd", "fwd", 69),
                                      ("flash_bwd_kv", "tid_flash_bwd_kv", "bwd_kv", 148),
@@ -2639,7 +3160,9 @@ def kernel_rows(flash, updates, report) -> list:
             rows.append(row)
     update_rows = [("pgd_l2_update", path, "tid_pgd_l2_update", 118, updates["l2"][key])
                    for path, key in (("diffusion", "f32"), ("real-weights", "f32"),
-                                     ("sdxl", "f32"), ("sdxl-1024", "bf16-1024"))]
+                                     ("sdxl", "f32"), ("sdxl-1024", "bf16-1024"),
+                                     ("batch", "batch3-f32"), ("batch-1024", "batch2-bf16-1024"),
+                                     ("sweep", "f32"))]
     update_rows += [("pgd_linf_update", path, "tid_pgd_linf_update", 64,
                      updates["linf"][f"{shape}-float32"])
                     for path, shape in (("inpaint", IMAGE_SHAPE), ("encoder", ENC_IMAGE_SHAPE))]

@@ -1,7 +1,7 @@
 """The port's CLI on the CPU (``--device cpu``), as tests/test_cli.py drives
 the JAX package's: flags made from the configs, ``immunize`` then
 ``evaluate`` on its artifacts (the port's own ``noise.npz``), the inpaint
-route, and a resume from ``--resume-from``."""
+route, a resume from ``--resume-from``, ``immunize-batch`` and ``sweep``."""
 
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from PIL import Image
 from test_torch_models import one_torch_thread  # noqa: F401
 
 from tml_image_editing_defense_torch import cli
-from tml_image_editing_defense_torch.configs import InferenceConfig, TrainConfig
+from tml_image_editing_defense_torch.configs import InferenceConfig, SweepConfig, TrainConfig
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -105,7 +105,7 @@ def test_cli_resume_from_a_checkpoint(tmp_path):
     assert len(rows) == 1 and '"step": 2' in rows[0]
 
 
-@pytest.mark.parametrize("cls", [TrainConfig, InferenceConfig])
+@pytest.mark.parametrize("cls", [TrainConfig, InferenceConfig, SweepConfig])
 def test_cli_flag_generation_and_bool_parsing(cls):
     """Every config field but ``prompts`` is a flag; BOOL flags take
     true/false/1/0; Optional[int] fields parse as int."""
@@ -129,3 +129,50 @@ def test_cli_defaults_to_the_card(tmp_path, monkeypatch):
     monkeypatch.setattr(api, "immunize", lambda cfg, device, resume_from: seen.update(d=device))
     assert cli.main(["immunize", "--output-path", str(tmp_path)]) == 0
     assert seen["d"] == "cuda"
+
+
+def test_cli_immunize_batch(tmp_path):
+    """Each image's artifacts in <output-path>/<stem>, one metrics file."""
+    imgs = [_write_img(tmp_path / f"im{i}.png", 10 + i) for i in range(2)]
+    out = tmp_path / "batch"
+    rc = cli.main(["immunize-batch", "--images", *map(str, imgs), "--output-path", str(out),
+                   "--prompts", "a", "b", *_FAST_FLAGS])
+    assert rc == 0
+    for img in imgs:
+        assert sorted(p.name for p in (out / img.stem).iterdir()) == ["adversarial_image.png",
+                                                                      "noise.npz"]
+    assert len((out / "metrics.jsonl").read_text().splitlines()) == 2
+
+
+def test_cli_sweep_on_the_tiny_family(tmp_path):
+    """One image, grid 1 x 1, one iteration, evaluated at the SweepConfig
+    defaults on the tiny family at 32x32."""
+    images = tmp_path / "images"
+    images.mkdir()
+    _write_img(images / "im0.png", 20)
+    rc = cli.main(["sweep", "--images-dir", str(images), "--output-root", str(tmp_path / "out"),
+                   "--n-prompts-grid", "1", "--n-noises-grid", "1", "--n-optimization-steps", "1",
+                   "--seed", "0", "--model-family", "tiny", "--image-size", "32",
+                   "--device", "cpu"])
+    assert rc == 0
+    cell = tmp_path / "out" / "im0" / "n_noises_1" / "n_prompts_1"
+    assert (cell / "adversarial_image.png").exists() and (cell / "noise.npz").exists()
+    assert len(list(cell.glob("*_noise_0.png"))) > 0
+
+
+def test_cli_sweep_grid_parsing(tmp_path, monkeypatch):
+    """"all" and "none" in a grid are None; the cells' model flags reach
+    train_overrides only when given."""
+    from tml_image_editing_defense_torch import api
+
+    seen = {}
+    monkeypatch.setattr(api, "sweep", lambda cfg, device, train_overrides: seen.update(
+        cfg=cfg, device=device, overrides=train_overrides) or [])
+    assert cli.main(["sweep", "--n-prompts-grid", "1", "10", "all", "--n-noises-grid", "3",
+                     "none", "None"]) == 0
+    assert seen["cfg"].n_prompts_grid == (1, 10, None)
+    assert seen["cfg"].n_noises_grid == (3, None, None)
+    assert seen["device"] == "cuda" and seen["overrides"] is None
+    assert cli.main(["sweep", "--image-size", "64"]) == 0
+    assert seen["cfg"].n_prompts_grid == SweepConfig().n_prompts_grid
+    assert seen["overrides"] == {"image_size": 64}

@@ -1,4 +1,5 @@
-"""The port's ``TrainConfig`` and prompt data against the JAX package's."""
+"""The port's ``TrainConfig``, ``InferenceConfig``, ``SweepConfig`` and prompt data
+against the JAX package's."""
 
 from __future__ import annotations
 
@@ -58,3 +59,13 @@ def test_inference_config_and_prompts_match_jax():
     kw = dict(source_image_path="a.png", output_path="out", validation_images_path="v.txt")
     assert pc.InferenceConfig(**kw).asdict() == jc.InferenceConfig(**kw).asdict()
     assert pc.INFERENCE_PROMPTS == jc.INFERENCE_PROMPTS
+
+
+def test_sweep_config_matches_jax():
+    """``SweepConfig``: every field and default, and ``__post_init__``'s paths."""
+    assert _defaults(pc.SweepConfig) == _defaults(jc.SweepConfig)
+    assert [f.name for f in dataclasses.fields(pc.SweepConfig)] == [
+        f.name for f in dataclasses.fields(jc.SweepConfig)]
+    p = pc.SweepConfig(images_dir="imgs", output_root="out")
+    j = jc.SweepConfig(images_dir="imgs", output_root="out")
+    assert dataclasses.asdict(p) == dataclasses.asdict(j)

@@ -31,7 +31,8 @@ def test_importing_every_port_module_loads_no_jax():
                                              "aux_models.caption",
                                              "models.isnet", "utils.flops",
                                              "utils.profiling", "models.lora",
-                                             "models.checkpoint_io", "prepare_real_weights")}
+                                             "models.checkpoint_io", "prepare_real_weights",
+                                             "parallel.sweep", "parallel.hosts")}
             <= set(mods))
     code = (
         "import importlib, sys\n"

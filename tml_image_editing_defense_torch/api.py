@@ -4,8 +4,13 @@
   ``attack_mode="diffusion"`` (the reference's live path) and
   ``attack_mode="inpaint"`` (PhotoGuard's attack on the 9-channel inpaint
   UNet, attack/inpaint.py), checkpoint/resume and preemption;
+- :func:`immunize_batch`: many images as one batch through the chain on
+  one card (the JAX ``immunize_batch`` with no mesh), each image with the
+  draws of its own one-image run;
 - :func:`evaluate` (reference ``Inference.run_inference``,
-  main.py:431-589) and :func:`transfer_perturbation` (main.py:413-429).
+  main.py:431-589) and :func:`transfer_perturbation` (main.py:413-429);
+- :func:`sweep`, the grid of the reference's ``run_all.py``: images x
+  n_prompts x n_noises, each cell immunized, then evaluated.
 
 Both take the caption prefix (main.py:64-72, 324-332); ``immunize`` also
 the salient-region mask (main.py:311-322), through ``aux_models``.
@@ -24,6 +29,8 @@ package does.
 
 from __future__ import annotations
 
+import dataclasses
+import random as _pyrandom
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -40,7 +47,9 @@ from tml_image_editing_defense_torch.attack.inpaint import (
 from tml_image_editing_defense_torch.attack.pgd import eot_chunk_size, make_attack_data, run_pgd
 from tml_image_editing_defense_torch.configs import (
     INFERENCE_PROMPTS,
+    PROMPTS_LIST,
     InferenceConfig,
+    SweepConfig,
     TrainConfig,
     format_prompt,
 )
@@ -48,12 +57,14 @@ from tml_image_editing_defense_torch.core import image_ops
 from tml_image_editing_defense_torch.core.rng import (
     EVAL_STREAM,
     SETUP_STREAM,
+    load_noise_pool,
     make_noise_pool,
     save_noise_pool,
     stream_generator,
 )
 from tml_image_editing_defense_torch.core.samplers import make_sampler
 from tml_image_editing_defense_torch.models.model_zoo import DiffusionModel, build_model
+from tml_image_editing_defense_torch.parallel.sweep import batch_attack_data, run_batched_pgd
 from tml_image_editing_defense_torch.pipelines import Img2ImgPipeline
 from tml_image_editing_defense_torch.utils.checkpoint import load_attack_state, save_attack_state
 from tml_image_editing_defense_torch.utils.device import resolve_device, set_numerics
@@ -323,6 +334,121 @@ def immunize(
     return ImmunizeResult(adv_pil, x_adv, pool_to_save, history, model, mask_route)
 
 
+def immunize_batch(
+    cfg: TrainConfig,
+    image_paths: Sequence[Union[str, Path]],
+    device: Union[str, torch.device, None] = "cuda",
+    model: Optional[DiffusionModel] = None,
+    logger: Optional[MetricsLogger] = None,
+    targets: Optional[Sequence[Union[str, Path]]] = None,
+    seeds: Optional[Sequence[int]] = None,
+    out_dirs: Optional[Sequence[Union[str, Path]]] = None,
+) -> List[ImmunizeResult]:
+    """Immunize many images as one batch on one card (JAX ``immunize_batch``,
+    api.py:378-562, with no mesh): ``cfg``'s attack, the images through the
+    chain together (``parallel.sweep.make_batched_pgd_step``), the
+    iterations in a host loop with no visualization and no host round trip.
+
+    Runs on the card unless ``device="cpu"``; raises when CUDA is absent and
+    the CPU was not asked for.  ``model`` defaults to ``cfg``'s family
+    built as :func:`immunize` builds it.  ``targets`` default to the images
+    themselves (run_all.py:45-46).
+
+    ``seeds``: one per image, each replaying :func:`immunize`'s draws in its
+    order: ``stream_generator(seed_i, SETUP_STREAM)`` gives the noise pool,
+    then the target's posterior noise, and the loop draws iteration ``it``
+    from ``iteration_generator(seed_i, it)``; so image i ends where
+    ``immunize(replace(cfg, seed=seed_i))`` ends.  Without ``seeds`` one
+    set-up stream of ``cfg.seed`` serves every image in image order, as the
+    JAX package's single ``KeyStream`` does, and the loop seed of image i is
+    the i-th of ``len(image_paths)`` integers drawn from that stream after
+    every image's set-up draws: each image draws its own, so identical
+    sources give different results.
+
+    Artifacts: ``adversarial_image.png`` and ``noise.npz`` (with
+    ``use_fixed_noise``) in ``out_dirs[i]``, by default
+    ``cfg.output_path/<stem>``; one ``MetricsLogger`` named
+    ``<experiment_name>_batch`` in ``cfg.output_path`` logs each image's
+    ``final_avg_loss``.  Each result's ``history`` is ``[{"avg_loss": ...}]``
+    per iteration.
+
+    As in the JAX function, neither the salient mask nor the caption prefix
+    applies: the prompts are formatted without a caption and no mask is
+    made.  ``attack_mode="inpaint"`` (no batched inpaint step) and
+    ``eot_shards`` above 1 (the multi-GPU slice) are refused."""
+    if cfg.attack_mode != "diffusion":
+        raise ValueError(f"attack_mode={cfg.attack_mode!r}: immunize_batch runs the diffusion "
+                         "attack only (there is no batched inpaint step)")
+    if cfg.eot_shards not in (None, 1):
+        raise ValueError(f"eot_shards={cfg.eot_shards}: immunize_batch runs on one card "
+                         "(None or 1); reps over cards come with the multi-GPU slice")
+    eot_chunk_size(cfg)
+    image_paths = [Path(p) for p in image_paths]
+    targets = image_paths if targets is None else [Path(t) for t in targets]
+    if seeds is not None and len(seeds) != len(image_paths):
+        raise ValueError(f"{len(seeds)} seeds for {len(image_paths)} images")
+    device = resolve_device(device)
+    dtype = set_numerics(cfg.dtype)
+    if model is None:
+        model = _cfg_model(cfg, device, dtype, _train_attn_chunk(cfg.image_size))
+    device = model.device
+    if model.unet.config.in_channels == 9:
+        raise ValueError(f"model_family={model.family!r} is an inpaint UNet; immunize_batch "
+                         "runs the diffusion attack only")
+    sampler = make_sampler(training_sampler_kind(model.base_family, cfg.use_lcm), model.schedule)
+    plan = sampler.plan(cfg.n_denoising_steps_per_iteration,
+                        limit_t=700 if cfg.limit_timesteps else None)
+    if plan.num_steps == 0:
+        raise ValueError("empty denoising plan: limit_timesteps filtered out every step "
+                         f"(K={cfg.n_denoising_steps_per_iteration})")
+    bank = model.embed_prompt_bank([format_prompt(p) for p in cfg.prompts], cfg.negative_prompt)
+
+    def load(path):
+        arr = image_ops.load_image(path, cfg.image_size)
+        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+    shared = stream_generator(cfg.seed, SETUP_STREAM, device)
+    lat_shape = model.latent_shape
+    datas, pools = [], []
+    for i, (path, target_path) in enumerate(zip(image_paths, targets)):
+        setup = shared if seeds is None else stream_generator(seeds[i], SETUP_STREAM, device)
+        pool = make_noise_pool(setup, max(cfg.n_noise, 1), lat_shape, dtype, device)
+        target_eps = torch.randn(lat_shape, generator=setup, device=device, dtype=dtype)
+        datas.append(make_attack_data(model, cfg, load(path), load(target_path), bank, pool,
+                                      target_latent_eps=target_eps))
+        pools.append(pool)
+    if seeds is None:
+        seeds = torch.randint(0, 2**62, (len(image_paths),), generator=shared,
+                              device=device).tolist()
+    batched = batch_attack_data(datas)
+    del datas
+
+    own_logger = logger is None
+    if own_logger:
+        logger = MetricsLogger(name=f"{cfg.experiment_name}_batch", config=cfg.asdict(),
+                               output_dir=cfg.output_path)
+    results = []
+    try:
+        x_advs, histories = run_batched_pgd(model, sampler, plan, cfg, batched, seeds)
+        for i, path in enumerate(image_paths):
+            out_dir = Path(out_dirs[i]) if out_dirs is not None else Path(cfg.output_path) / path.stem
+            out_dir.mkdir(parents=True, exist_ok=True)
+            x_adv = x_advs[i:i + 1]
+            adv_pil = image_ops.to_pil(x_adv)
+            adv_pil.save(out_dir / "adversarial_image.png")
+            pool = pools[i] if cfg.use_fixed_noise else None
+            if pool is not None:
+                save_noise_pool(out_dir / "noise.npz", pool)
+            history = [{"avg_loss": h["avg_loss"]} for h in histories[i]]
+            if history:
+                logger.log({"final_avg_loss": history[-1]["avg_loss"]}, step=i)
+            results.append(ImmunizeResult(adv_pil, x_adv, pool, history, model))
+    finally:
+        if own_logger:
+            logger.finish()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # evaluation
 # ---------------------------------------------------------------------------
@@ -517,3 +643,147 @@ def evaluate(
         if own_logger:
             logger.finish()
     return output_images
+
+
+# ---------------------------------------------------------------------------
+# sweep
+# ---------------------------------------------------------------------------
+
+
+def _sweep_cells(cfg: SweepConfig, image_paths: Sequence[Path],
+                 train_overrides: Optional[dict] = None) -> List[dict]:
+    """The sweep grid (run_all.py:23-55) as cell descriptors, in image-major
+    order.  Each (image, n_prompts) pair draws its prompts from one unseeded
+    ``random.Random()`` (run_all.py:28-33): ``[""]`` for 1 prompt, ``""``
+    and ``n - 1`` sampled prompts for n, every prompt for None.  A cell's
+    seed is ``cfg.seed``, or a draw of that generator when it is None; a
+    cell with n_noises None trains on fresh noise.  ``train_overrides``
+    replace ``TrainConfig`` fields last."""
+    rng = _pyrandom.Random()
+    cells = []
+    for image_path in image_paths:
+        image_path = Path(image_path)
+        image_out = Path(cfg.output_root) / image_path.stem
+        for n_prompts in cfg.n_prompts_grid:
+            if n_prompts is None:
+                prompts = list(PROMPTS_LIST)
+            elif n_prompts == 1:
+                prompts = [""]
+            else:
+                prompts = [""] + rng.sample(PROMPTS_LIST, n_prompts - 1)
+            for n_noises in cfg.n_noises_grid:
+                cell_dir = image_out / f"n_noises_{n_noises}" / f"n_prompts_{n_prompts}"
+                seed = cfg.seed if cfg.seed is not None else rng.randint(0, 2**32 - 1)
+                train_cfg = TrainConfig(
+                    experiment_name=f"{image_path.stem}_n_noises_{n_noises}_n_prompts_{n_prompts}",
+                    source_image_path=image_path,
+                    target_image_path=image_path,
+                    output_path=cell_dir,
+                    n_optimization_steps=cfg.n_optimization_steps,
+                    n_noise=n_noises if n_noises is not None else 1,
+                    use_fixed_noise=n_noises is not None,
+                    prompts=prompts,
+                    seed=seed,
+                    guidance_scale=3.0,
+                    use_sdxl=cfg.use_sdxl,
+                    use_lcm=cfg.use_lcm,
+                )
+                if train_overrides:
+                    train_cfg = dataclasses.replace(train_cfg, **train_overrides)
+                cells.append({
+                    "image": image_path, "n_prompts": n_prompts, "prompts": prompts,
+                    "n_noises": n_noises, "seed": seed, "dir": cell_dir,
+                    "train_cfg": train_cfg,
+                })
+    return cells
+
+
+def sweep(
+    cfg: SweepConfig,
+    device: Union[str, torch.device, None] = "cuda",
+    model: Optional[DiffusionModel] = None,
+    image_paths: Optional[Sequence[Path]] = None,
+    data_parallel: Optional[bool] = None,
+    train_overrides: Optional[dict] = None,
+) -> List[dict]:
+    """Grid sweep {images} x {n_prompts} x {n_noises} (run_all.py:23-93):
+    every cell of :func:`_sweep_cells` immunized into its directory
+    ``<output_root>/<stem>/n_noises_<n>/n_prompts_<p>``, then, with
+    ``cfg.run_inference``, evaluated there (LCM with ``inference_n_steps``
+    at ``inference_strength`` over ``INFERENCE_PROMPTS``, at the geometry
+    and family the cell trained at).  One model, built once, serves every
+    cell.  ``image_paths`` default to ``list_sweep_images(cfg.images_dir)``.
+
+    Runs on the card unless ``device="cpu"``.  ``data_parallel`` None means
+    False: the port uses one card and runs the cells one after another.
+    True groups the cells that share a prompt bank and a pool size (the same
+    grid point on different images) and runs each group of two or more as
+    one batch through :func:`immunize_batch` on the card, with each cell's
+    seed, so the artifacts are the serial ones; a group of one runs through
+    :func:`immunize`.  Data parallelism over several cards comes with the
+    multi-GPU slice.  A cell runs with ``eot_shards=1`` unless
+    ``train_overrides`` name it.  Returns one entry per cell (image,
+    n_prompts, n_noises, seed, output directory), evaluated or not."""
+    if image_paths is None:
+        from tml_image_editing_defense_torch.parallel.hosts import list_sweep_images
+
+        image_paths = list_sweep_images(cfg.images_dir)
+    cells = _sweep_cells(cfg, image_paths, train_overrides)
+    for cell in cells:
+        cell["dir"].mkdir(parents=True, exist_ok=True)
+    forced_eot = ({} if (train_overrides and "eot_shards" in train_overrides)
+                  else {"eot_shards": 1})
+
+    if data_parallel:
+        groups: dict = {}
+        for cell in cells:
+            groups.setdefault((tuple(cell["prompts"]), cell["n_noises"]), []).append(cell)
+        for group in groups.values():
+            if len(group) == 1:
+                res = immunize(dataclasses.replace(group[0]["train_cfg"], **forced_eot),
+                               device=device, model=model)
+                model = res.model
+                continue
+            batch_cfg = dataclasses.replace(group[0]["train_cfg"], **forced_eot)
+            if model is None:
+                model = _cfg_model(batch_cfg, resolve_device(device), set_numerics(batch_cfg.dtype),
+                                   _train_attn_chunk(batch_cfg.image_size))
+            immunize_batch(batch_cfg, [c["image"] for c in group], device=device, model=model,
+                           seeds=[c["seed"] for c in group], out_dirs=[c["dir"] for c in group])
+    else:
+        for cell in cells:
+            res = immunize(dataclasses.replace(cell["train_cfg"], **forced_eot), device=device,
+                           model=model)
+            model = res.model
+
+    results = []
+    for cell in cells:
+        cell_dir, image_path, n_noises = cell["dir"], cell["image"], cell["n_noises"]
+        entry = {"image": str(image_path), "n_prompts": cell["n_prompts"],
+                 "n_noises": n_noises, "seed": cell["seed"], "output": str(cell_dir)}
+        if cfg.run_inference:
+            adv = Image.open(cell_dir / "adversarial_image.png").convert("RGB")
+            noise_file = cell_dir / "noise.npz"
+            pool = load_noise_pool(noise_file) if noise_file.exists() else None
+            train_cfg = cell["train_cfg"]
+            inf_cfg = InferenceConfig(
+                experiment_name=train_cfg.experiment_name,
+                source_image_path=image_path,
+                target_image_path=image_path,
+                output_path=cell_dir,
+                image_size=train_cfg.image_size,
+                model_family=train_cfg.model_family,
+                n_steps=cfg.inference_n_steps,
+                guidance_scale=cfg.inference_guidance_scale,
+                strength=cfg.inference_strength,
+                use_fixed_noise=n_noises is not None,
+                n_noise=n_noises if n_noises is not None else 1,
+                validation_images_path=None,
+                use_sdxl=cfg.use_sdxl,
+                use_lcm=cfg.use_lcm,
+                seed=cell["seed"],
+            )
+            evaluate(inf_cfg, adv, INFERENCE_PROMPTS, device=device, model=model, noises=pool,
+                     training_prompts=cell["prompts"])
+        results.append(entry)
+    return results

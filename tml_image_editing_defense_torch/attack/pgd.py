@@ -2,16 +2,20 @@
 
 - :func:`perturbation_step` and its L2 / L-inf branches: reference
   ``main.py:248-276``, including ``torch.renorm``'s slice-wise projection.
-- :func:`make_eot_grad`: the ``grad_reps`` expectation over transformations
-  (main.py:88-102) with the VAE encode run once and its backward applied once
-  to the rep-averaged posterior gradient, as the JAX version does; the reps
-  in batches of ``eot_chunk``, each denoising step under ``remat_policy``,
-  the encode and decodes under a checkpoint with ``remat_vae``.
+- :func:`make_batched_eot_grad`: the ``grad_reps`` expectation over
+  transformations (main.py:88-102) of B images as one batch through the
+  chain (JAX parallel/sweep.py's ``vmap``), with the VAE encode run once
+  and its backward applied once to the rep-averaged posterior gradient, as
+  the JAX version does; the reps in batches of ``eot_chunk``, each
+  denoising step under ``remat_policy``, the encode and decodes under a
+  checkpoint with ``remat_vae``.  :func:`make_batched_pgd_step` adds the
+  update; :func:`make_eot_grad` and :func:`make_pgd_step` are both on a
+  batch of one.
 - :func:`_rep_loss_fn`: the per-rep loss that encodes the image itself, as
   the reference does every rep (main.py:191); the legacy loops use it.
-- :func:`make_pgd_step` and :func:`run_pgd`: one outer iteration, and the
-  host loop with visualization callbacks, which drives any step of that
-  contract (the inpaint step of attack/inpaint.py too).
+- :func:`run_pgd`: the host loop with visualization callbacks, which drives
+  any step of that contract (the inpaint step of attack/inpaint.py too),
+  for one image or, with one seed per image, for a batch.
 
 Randomness is explicit.  A step takes an :class:`EOTDraws` (prompt index,
 pool indices, VAE posterior noise, LCM step noise); :func:`sample_draws`
@@ -181,7 +185,8 @@ class EOTDraws:
     #: row of the prompt bank (main.py:85), or one row per rep where the
     #: prompt is drawn per rep (the legacy loops and the inpaint attack)
     prompt_idx: Union[Index, Sequence[Index]]
-    pool_idx: Sequence[Index]           # [R] noise-pool entry per rep (main.py:215)
+    #: [R] noise-pool entry per rep (main.py:215): a 1-D tensor, or ints
+    pool_idx: Union[torch.Tensor, Sequence[Index]]
     vae_eps: torch.Tensor               # [R, C, h, w] posterior noise per rep
     step_noise: torch.Tensor            # [R, K, C, h, w] LCM step noise per rep
     #: [R, C, h, w] fresh init noise per rep, when cfg.use_fixed_noise is False
@@ -214,7 +219,7 @@ def sample_draws(generator: torch.Generator, cfg: TrainConfig, n_prompts: int, n
     init_noise = None
     if not cfg.use_fixed_noise:
         init_noise = torch.randn((r, *c_hw), generator=generator, device=dev, dtype=dtype)
-    return EOTDraws(prompt_idx, list(pool_idx.unbind(0)), vae_eps, step_noise, init_noise)
+    return EOTDraws(prompt_idx, pool_idx, vae_eps, step_noise, init_noise)
 
 
 def iteration_generator(seed: int, iteration: int, device) -> torch.Generator:
@@ -239,46 +244,84 @@ def _vae_checkpoint(fn: Callable, remat_vae: bool) -> Callable:
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def _rep_loss_from_dist(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
-                        cfg: TrainConfig):
-    """The loss of EOT samples as a function of the VAE posterior (mean,
-    logvar) (reference compute_grad, main.py:144-177; JAX pgd.py:211-258).
+def _row_loss(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan, cfg: TrainConfig):
+    """The loss of EOT rows run through the chain as one batch, CFG doubling
+    it (reference compute_grad, main.py:144-177; JAX pgd.py:211-258).
 
-    ``loss_fn(mean, logvar, data, draws, rows) -> (losses, recs, perts,
-    out_latents)`` runs the reps ``rows`` (a range of rows of ``draws``)
-    through the chain as one batch, CFG doubling it; the outputs have one
-    row per rep.  The denoising steps run under
-    ``cfg.remat_policy``, the decode under a checkpoint with
+    ``loss_fn(mean, logvar, eps, noise, cond, step_noise, target,
+    target_latent, source) -> (losses, recs, perts, out_latents)``, one row
+    per row of ``eps``: ``mean`` and ``logvar`` are the VAE posterior (one
+    row shared by every row, or one per row), ``step_noise`` is
+    [K, rows, C, h, w], and ``target``, ``target_latent`` and ``source``
+    hold one row shared by every row or one per row.  The denoising steps
+    run under ``cfg.remat_policy``, the decode under a checkpoint with
     ``cfg.remat_vae``."""
     need_pixels = cfg.apply_loss_on_images or cfg.perturbation_loss_lambda > 0
     decode = _vae_checkpoint(lambda z: model.decode_latent(z, scaled=False), cfg.remat_vae)
 
-    def loss_fn(mean, logvar, data: AttackData, draws: EOTDraws, rows: range):
-        sl = slice(rows.start, rows.stop)
-        if draws.init_noise is not None:
-            noise = draws.init_noise[sl]
-        else:
-            noise = torch.cat([data.noise_pool[draws.pool_idx[r]] for r in rows])
-        cond = stack_cond([data.cond(draws.rep_prompt(r)) for r in rows])
-        z = sample_latent(mean, logvar, draws.vae_eps[sl]) * model.vae_scaling
+    def per_row(fn, outs, ref):
+        refs = ref.expand(outs.shape[0], *ref.shape[1:]).split(1)
+        return torch.stack([fn(o, r) for o, r in zip(outs.split(1), refs)])
+
+    def loss_fn(mean, logvar, eps, noise, cond: CondInputs, step_noise, target, target_latent,
+                source):
+        z = sample_latent(mean, logvar, eps) * model.vae_scaling
         out_latent = attack_forward_from_latent(
-            model, sampler, plan, z, cond, noise, cfg.guidance_scale,
-            draws.step_noise[sl].transpose(0, 1), cfg.remat_policy)
+            model, sampler, plan, z, cond, noise, cfg.guidance_scale, step_noise,
+            cfg.remat_policy)
         output_image = decode(out_latent) if need_pixels else None
         if cfg.apply_loss_on_images:
-            rec = torch.stack([lp_distance(o, data.target, 2) for o in output_image.split(1)])
+            rec = per_row(lambda o, r: lp_distance(o, r, 2), output_image, target)
         elif cfg.apply_loss_on_latents:
-            rec = torch.stack([lp_distance(o, data.target_latent, 2)
-                               for o in out_latent.split(1)])
+            rec = per_row(lambda o, r: lp_distance(o, r, 2), out_latent, target_latent)
         else:
             raise ValueError("set apply_loss_on_images or apply_loss_on_latents")
         if cfg.perturbation_loss_lambda > 0:
-            pert = torch.stack([perturbation_loss(o, data.source) for o in output_image.split(1)])
+            pert = per_row(perturbation_loss, output_image, source)
             loss = cfg.rec_loss_lambda * rec + cfg.perturbation_loss_lambda * pert
         else:
             pert = torch.zeros_like(rec)
             loss = cfg.rec_loss_lambda * rec
         return loss, rec, pert, out_latent
+
+    return loss_fn
+
+
+def rep_inputs(data: AttackData, draws: EOTDraws, rows: range, noise_pool=None):
+    """The per-row inputs of reps ``rows`` of ``draws``: (posterior noise,
+    init noise, CFG conditioning, step noise [K, rows, C, h, w]); the init
+    noise is the drawn fresh noise, or the pool entries of ``noise_pool``
+    [N, 1, C, h, w] (default ``data.noise_pool``)."""
+    sl = slice(rows.start, rows.stop)
+    pool = data.noise_pool if noise_pool is None else noise_pool
+    if draws.init_noise is not None:
+        noise = draws.init_noise[sl]
+    else:
+        # gathered on the pool's device: indexing with a 0-d device tensor
+        # reads it on the host, once a row
+        idx = draws.pool_idx[sl]
+        if not torch.is_tensor(idx):
+            idx = torch.stack([torch.as_tensor(i) for i in idx])
+        noise = pool.index_select(0, idx.to(pool.device)).flatten(0, 1)
+    cond = [data.cond(draws.rep_prompt(r)) for r in rows]
+    return draws.vae_eps[sl], noise, cond, draws.step_noise[sl].transpose(0, 1)
+
+
+def _rep_loss_from_dist(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
+                        cfg: TrainConfig):
+    """The loss of EOT samples as a function of the VAE posterior (mean,
+    logvar) (JAX pgd.py:211-258).
+
+    ``loss_fn(mean, logvar, data, draws, rows) -> (losses, recs, perts,
+    out_latents)`` runs the reps ``rows`` (a range of rows of ``draws``)
+    through the chain as one batch (:func:`_row_loss`); the outputs have one
+    row per rep."""
+    row_loss = _row_loss(model, sampler, plan, cfg)
+
+    def loss_fn(mean, logvar, data: AttackData, draws: EOTDraws, rows: range):
+        eps, noise, cond, step_noise = rep_inputs(data, draws, rows)
+        return row_loss(mean, logvar, eps, noise, stack_cond(cond), step_noise, data.target,
+                        data.target_latent, data.source)
 
     return loss_fn
 
@@ -334,50 +377,117 @@ def eot_chunk_size(cfg: TrainConfig) -> int:
     return chunk
 
 
-def make_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
-                  cfg: TrainConfig):
-    """EOT gradient ``eot(x_adv, data, draws) -> (grad, aux)``: the mean over
-    ``grad_reps`` samples (main.py:88-102), prompt drawn once per call.
+def batch_attack_data(datas: Sequence[AttackData]) -> AttackData:
+    """Stack the per-image fields (``source``, ``target``, ``target_latent``,
+    ``noise_pool``, ``mask``) on a new leading image axis; the prompt bank,
+    its pooled rows and the time ids are shared and stay unbatched (JAX
+    parallel/sweep.py:27-49)."""
+    d0 = datas[0]
 
-    The encode is shared: ``vae.encode(x_adv)`` runs once (under a
+    def stack(field):
+        vals = [getattr(d, field) for d in datas]
+        return None if vals[0] is None else torch.stack(vals)
+
+    return AttackData(
+        source=stack("source"),                 # [B, 1, 3, H, W]
+        target=stack("target"),
+        target_latent=stack("target_latent"),   # [B, 1, C, h, w]
+        bank_embeds=d0.bank_embeds,
+        bank_uncond=d0.bank_uncond,
+        noise_pool=stack("noise_pool"),         # [B, N, 1, C, h, w]
+        bank_pooled=d0.bank_pooled,
+        bank_uncond_pooled=d0.bank_uncond_pooled,
+        time_ids=d0.time_ids,
+        mask=stack("mask"),                     # [B, 1, 1, H, W]
+    )
+
+
+SCALAR_KEYS = ("avg_loss", "rec_loss", "pert_loss")
+
+
+def _one_image(aux: dict) -> dict:
+    """A batch of one's aux as the one-image functions give it: scalar
+    losses and one prompt row (the output latent stays [1, C, h, w])."""
+    return {**aux, **{k: aux[k][0] for k in (*SCALAR_KEYS, "prompt_idx")}}
+
+
+def make_batched_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
+                          cfg: TrainConfig):
+    """EOT gradient of B images ``eot(x_advs [B, 3, H, W], batched, draws) ->
+    (grad, aux)``, with ``batched`` from :func:`batch_attack_data` and
+    ``draws`` one :class:`EOTDraws` per image: for each image the mean over
+    ``grad_reps`` samples (main.py:88-102), its prompt drawn once per call.
+
+    The encode is shared: ``vae.encode`` runs once on the B images (under a
     checkpoint with ``cfg.remat_vae``, JAX pgd.py:310-314); the reps take
     their gradient with respect to detached copies of (mean, logvar), and
     the rep-averaged gradient goes through the encoder's backward once.  The
     reps run in batches of :func:`eot_chunk_size`, rows ``r0 .. r0+c-1`` of
-    ``draws`` together; their losses are summed, so the mean gradient is the
-    one-at-a-time one.  Each batch's graph is freed before the next one is
-    built.  ``aux`` holds the mean loss over reps and the last rep's
-    rec/pert losses and output latent (detached), as JAX's ``a[-1]``."""
-    loss_fn = _rep_loss_from_dist(model, sampler, plan, cfg)
+    every image's draws together as B x c rows, image-major, each row with
+    its image's conditioning, noise, posterior sample, target and source.
+    The rows' losses are summed: the rows are independent (the UNet and the
+    VAE keep no batch statistics), so each image gets the sum over its own
+    rows, the one-at-a-time gradient.  Each batch's graph is freed before
+    the next one is built.  ``aux`` holds per image ([B], on the device) the
+    mean loss over reps and the last rep's rec/pert losses (JAX's
+    ``a[-1]``), the prompt rows, and the last rep's output latents
+    [B, C, h, w], all detached."""
+    row_loss = _row_loss(model, sampler, plan, cfg)
     reps = cfg.grad_reps
     chunk = eot_chunk_size(cfg)
     encode = _vae_checkpoint(model.vae.encode, cfg.remat_vae)
 
-    def eot(x_adv: torch.Tensor, data: AttackData, draws: EOTDraws):
+    def rows_of(batched: AttackData, draws: Sequence[EOTDraws], rows: range):
+        parts = [rep_inputs(batched, d, rows, noise_pool=batched.noise_pool[i])
+                 for i, d in enumerate(draws)]
+        eps, noise, conds, step_noise = zip(*parts)
+        per_row = lambda t: t[:, 0].repeat_interleave(len(rows), 0)     # noqa: E731
+        return (torch.cat(eps), torch.cat(noise), stack_cond([c for cs in conds for c in cs]),
+                torch.cat(step_noise, dim=1), per_row(batched.target),
+                per_row(batched.target_latent), per_row(batched.source))
+
+    def eot(x_advs: torch.Tensor, batched: AttackData, draws: Sequence[EOTDraws]):
+        b = x_advs.shape[0]
+        if len(draws) != b:
+            raise ValueError(f"{len(draws)} draws for {b} images")
         with torch.enable_grad():
-            x = x_adv.detach().requires_grad_(True)
+            x = x_advs.detach().requires_grad_(True)
             mean, logvar = encode(x)
             g_mean, g_logvar = torch.zeros_like(mean), torch.zeros_like(logvar)
-            loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+            loss_sum = torch.zeros((b,), dtype=torch.float32, device=x.device)
             for r0 in range(0, reps, chunk):
                 m = mean.detach().requires_grad_(True)
                 lv = logvar.detach().requires_grad_(True)
-                loss, rec, pert, out_lat = loss_fn(m, lv, data, draws, range(r0, r0 + chunk))
+                eps, noise, cond, step_noise, target, target_latent, source = rows_of(
+                    batched, draws, range(r0, r0 + chunk))
+                loss, rec, pert, out_lat = row_loss(
+                    m.repeat_interleave(chunk, 0), lv.repeat_interleave(chunk, 0), eps, noise,
+                    cond, step_noise, target, target_latent, source)
                 gm, gl = torch.autograd.grad(loss.sum(), [m, lv])
                 g_mean += gm
                 g_logvar += gl
-                loss_sum += loss.detach().sum()
+                loss_sum += loss.detach().view(b, chunk).sum(1)
             torch.autograd.backward([mean, logvar], [g_mean / reps, g_logvar / reps])
-        aux = {
-            "avg_loss": loss_sum / reps,
-            "rec_loss": rec[-1].detach(),
-            "pert_loss": pert[-1].detach(),
-            "prompt_idx": draws.prompt_idx,
-            "output_latent": out_lat[-1:].detach(),
-        }
+        last = lambda t: t.detach().view(b, chunk, *t.shape[1:])[:, -1]     # noqa: E731
+        aux = {"avg_loss": loss_sum / reps, "rec_loss": last(rec), "pert_loss": last(pert),
+               "prompt_idx": [d.prompt_idx for d in draws], "output_latent": last(out_lat)}
         return x.grad, aux
 
     return eot
+
+
+def make_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
+                  cfg: TrainConfig):
+    """EOT gradient of one image ``eot(x_adv [1, 3, H, W], data, draws) ->
+    (grad, aux)``: :func:`make_batched_eot_grad` on a batch of one, the
+    losses in ``aux`` scalars."""
+    eot = make_batched_eot_grad(model, sampler, plan, cfg)
+
+    def one(x_adv: torch.Tensor, data: AttackData, draws: EOTDraws):
+        grad, aux = eot(x_adv, batch_attack_data([data]), [draws])
+        return grad, _one_image(aux)
+
+    return one
 
 
 # ---------------------------------------------------------------------------
@@ -385,30 +495,46 @@ def make_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan
 # ---------------------------------------------------------------------------
 
 
-def make_pgd_step(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
-                  cfg: TrainConfig, decode_vis: bool = True) -> Callable:
-    """One outer PGD iteration ``step(x_adv, data, draws) -> (x_adv', aux)``
-    (main.py:79-115).  With ``decode_vis`` the aux also carries
-    ``output_image``, the last rep's output decoded for the vis grid."""
-    eot = make_eot_grad(model, sampler, plan, cfg)
+def make_batched_pgd_step(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
+                          cfg: TrainConfig) -> Callable:
+    """One outer PGD iteration of B images ``step(x_advs [B, 3, H, W],
+    batched, draws) -> (x_advs', aux)`` (main.py:79-115; JAX
+    parallel/sweep.py:85-109, the ``vmap`` of the one-image step, run here
+    as one batch): the gradient of :func:`make_batched_eot_grad`, then one
+    update of every image (K4 for L2 at [B, 3, H, W] with per-image norms,
+    K5 for L-inf)."""
+    eot = make_batched_eot_grad(model, sampler, plan, cfg)
     update = select_perturbation_update(cfg)
 
-    def step(x_adv: torch.Tensor, data: AttackData, draws: EOTDraws):
-        grad, aux = eot(x_adv, data, draws)
+    def step(x_advs: torch.Tensor, batched: AttackData, draws: Sequence[EOTDraws]):
+        grad, aux = eot(x_advs, batched, draws)
+        mask = None if batched.mask is None else batched.mask[:, 0]
         # the encoder's backward may leave the gradient in a strided layout
-        x_new = update(cfg.norm_type, x_adv=x_adv.detach(), grad=grad.contiguous(),
-                       x_src=data.source,
-                       step_size=cfg.step_size, eps=cfg.eps, min_value=cfg.min_value,
-                       max_value=cfg.max_value, mask=data.mask)
-        if decode_vis:
-            with torch.no_grad():
-                aux["output_image"] = model.decode_latent(aux["output_latent"], scaled=False)
+        x_new = update(cfg.norm_type, x_adv=x_advs.detach(), grad=grad.contiguous(),
+                       x_src=batched.source[:, 0], step_size=cfg.step_size, eps=cfg.eps,
+                       min_value=cfg.min_value, max_value=cfg.max_value, mask=mask)
         return x_new, aux
 
     return step
 
 
-SCALAR_KEYS = ("avg_loss", "rec_loss", "pert_loss")
+def make_pgd_step(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
+                  cfg: TrainConfig, decode_vis: bool = True) -> Callable:
+    """One outer PGD iteration of one image ``step(x_adv, data, draws) ->
+    (x_adv', aux)``: :func:`make_batched_pgd_step` on a batch of one.  With
+    ``decode_vis`` the aux also carries ``output_image``, the last rep's
+    output decoded for the vis grid."""
+    step = make_batched_pgd_step(model, sampler, plan, cfg)
+
+    def one(x_adv: torch.Tensor, data: AttackData, draws: EOTDraws):
+        x_new, aux = step(x_adv, batch_attack_data([data]), [draws])
+        aux = _one_image(aux)
+        if decode_vis:
+            with torch.no_grad():
+                aux["output_image"] = model.decode_latent(aux["output_latent"], scaled=False)
+        return x_new, aux
+
+    return one
 
 
 def run_pgd(
@@ -417,7 +543,7 @@ def run_pgd(
     plan: DenoisePlan,
     cfg: TrainConfig,
     data: AttackData,
-    seed: int,
+    seed: Union[int, Sequence[int]],
     vis_callback: Optional[Callable] = None,
     vis_needs_image: bool = True,
     step_fn: Optional[Callable] = None,
@@ -431,12 +557,17 @@ def run_pgd(
     """Host-driven PGD loop (reference main.py:79-135), from ``x_init``
     (default: the source) at iteration ``start_iteration``.
 
+    ``seed`` is an int for one image, or a list of seeds, one per image of
+    a batched ``data`` (:func:`batch_attack_data`), for a batch of images.
     ``step_fn(x_adv, data, draws) -> (x_adv', aux)`` is the iteration
-    (default: :func:`make_pgd_step` without the vis decode);
+    (default: :func:`make_pgd_step` without the vis decode, or
+    :func:`make_batched_pgd_step` for a batch, whose ``draws`` hold one
+    draw per image);
     ``draw_sampler(generator) -> EOTDraws`` draws its randomness from the
     iteration's generator (default: :func:`sample_draws`).  The generators
     are positional in (seed, iteration), so a run resumed at iteration k
-    draws what an uninterrupted run would.
+    draws what an uninterrupted run would, and image i of a batch draws
+    what a one-image run with seed i would.
     ``vis_callback(it, x_adv, aux)`` fires at every
     ``cfg.image_visualization_interval``-th iteration and at the last one;
     the vis image is decoded from ``aux["output_latent"]`` only there, when
@@ -449,25 +580,36 @@ def run_pgd(
     iteration that did not run.
 
     Loss scalars stay on the device until the loop ends; the returned history
-    has one ``{avg_loss, rec_loss, pert_loss}`` entry per iteration run.
+    has one ``{avg_loss, rec_loss, pert_loss}`` entry per iteration run, a
+    list of them per image for a batch.
     The JAX package's ``dispatch_block`` fuses iterations into one compiled
     TPU dispatch; a host-driven eager loop has no such dispatch, so the port
     has no counterpart of it."""
-    step = step_fn or make_pgd_step(model, sampler, plan, cfg, decode_vis=False)
+    seeds = list(seed) if isinstance(seed, (list, tuple)) else None
+    if step_fn is None:
+        step_fn = (make_pgd_step(model, sampler, plan, cfg, decode_vis=False) if seeds is None
+                   else make_batched_pgd_step(model, sampler, plan, cfg))
     if draw_sampler is None:
+        pool = data.noise_pool                  # [(B,) N, 1, C, h, w]
+
         def draw_sampler(gen):
-            return sample_draws(gen, cfg, data.bank_embeds.shape[0], data.noise_pool.shape[0],
-                                data.noise_pool.shape[1:], plan.num_steps, data.source.dtype)
-    x_adv = data.source if x_init is None else x_init
+            return sample_draws(gen, cfg, data.bank_embeds.shape[0], pool.shape[-5],
+                                pool.shape[-4:], plan.num_steps, data.source.dtype)
+    if x_init is None:
+        x_init = data.source if seeds is None else data.source[:, 0]
+    x_adv, dev = x_init, data.source.device
     n, interval = cfg.n_optimization_steps, cfg.image_visualization_interval
-    pending, preempted = [], None
+    pending, preempted = [], []
     for it in range(start_iteration, n):
         if stop_flag:
-            preempted = {"preempted_at": it}
+            preempted = [{"preempted_at": it}]
             break
-        draws = draw_sampler(iteration_generator(seed, it, data.source.device))
-        x_adv, aux = step(x_adv, data, draws)
-        pending.append(torch.stack([aux[k].float() for k in SCALAR_KEYS]))
+        if seeds is None:
+            draws = draw_sampler(iteration_generator(seed, it, dev))
+        else:
+            draws = [draw_sampler(iteration_generator(s, it, dev)) for s in seeds]
+        x_adv, aux = step_fn(x_adv, data, draws)
+        pending.append(torch.stack([aux[k].float() for k in SCALAR_KEYS], dim=-1))
         if vis_callback is not None and (it % interval == 0 or it == n - 1):
             if vis_needs_image:
                 with torch.no_grad():
@@ -475,10 +617,13 @@ def run_pgd(
             vis_callback(it, x_adv, aux)
         if ckpt_callback is not None and ckpt_interval and it and it % ckpt_interval == 0:
             ckpt_callback(it, x_adv)
-    history = []
-    if pending:
-        rows = torch.stack(pending).cpu().tolist()
-        history = [dict(zip(SCALAR_KEYS, row)) for row in rows]
-    if preempted is not None:
-        history.append(preempted)
-    return x_adv, history
+
+    def history(rows):
+        return [dict(zip(SCALAR_KEYS, row)) for row in rows] + preempted
+
+    if seeds is None:
+        return x_adv, history(torch.stack(pending).cpu().tolist() if pending else [])
+    # [iterations, B, 3] -> per image
+    per_image = (torch.stack(pending, dim=1).cpu().tolist() if pending
+                 else [[] for _ in seeds])
+    return x_adv, [history(rows) for rows in per_image]

@@ -1,11 +1,22 @@
 """Command-line interface of the port (port of ``cli.py``).
 
-Flags are made from the ``TrainConfig`` and ``InferenceConfig`` fields, one
-``--field-name`` each; ``--device`` (default ``cuda``) picks the device.
+Flags are made from the ``TrainConfig``, ``InferenceConfig`` and
+``SweepConfig`` fields, one ``--field-name`` each; ``--device`` (default
+``cuda``) picks the device.
 
     python -m tml_image_editing_defense_torch.cli immunize --source-image-path img.jpg ...
+    python -m tml_image_editing_defense_torch.cli immunize-batch --images a.jpg b.jpg ...
     python -m tml_image_editing_defense_torch.cli evaluate \\
         --adversarial-image out/adversarial_image.png --noise-pool out/noise.npz ...
+    python -m tml_image_editing_defense_torch.cli sweep --images-dir ./images \\
+        --n-prompts-grid 1 10 all --n-noises-grid 1 none ...
+
+``immunize-batch`` immunizes the images as one batch on the card (each
+image's artifacts in ``--output-path``/<stem>); ``sweep`` runs the grid of
+the reference's ``run_all.py``, cell after cell ("all" or "none" in a grid
+is None: every prompt, fresh noise); its ``--model-family`` and
+``--image-size`` set the cells' model (on the CPU: ``--device cpu
+--model-family tiny --image-size 32``).
 
 SDXL: ``--use-sdxl true`` (immunize at the default 512x512; evaluate at its
 native ``--image-size 1024``); on the CPU the tiny test family,
@@ -17,9 +28,6 @@ Real weights: ``--params-path W.msgpack`` (a bundle of
 ``prepare_real_weights``, of either package) and ``--tokenizer-paths DIR``
 (one CLIP tokenizer directory; the second SDXL encoder keeps the hash
 tokenizer).
-
-The JAX package's ``immunize-batch`` and ``sweep`` come with the multi-GPU
-slice of the port.
 """
 
 from __future__ import annotations
@@ -33,10 +41,11 @@ from typing import get_args, get_origin
 from tml_image_editing_defense_torch.configs import (
     INFERENCE_PROMPTS,
     InferenceConfig,
+    SweepConfig,
     TrainConfig,
 )
 
-_SKIP_FIELDS = {"prompts"}
+_SKIP_FIELDS = {"prompts", "n_prompts_grid", "n_noises_grid"}
 
 
 def _add_dataclass_args(parser: argparse.ArgumentParser, cls) -> None:
@@ -70,6 +79,11 @@ def _build_cfg(cls, args: argparse.Namespace):
     return cls(**kwargs)
 
 
+def _parse_grid(values):
+    """A sweep grid from the command line: integers, "all" / "none" for None."""
+    return tuple(None if v.lower() in ("all", "none") else int(v) for v in values)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="tml-immunize-torch",
@@ -91,7 +105,23 @@ def main(argv=None) -> int:
                         help="noise.npz saved by immunize (of either package)")
     p_eval.add_argument("--prompts", nargs="*", default=None)
 
-    for p in (p_imm, p_eval):
+    p_batch = sub.add_parser("immunize-batch",
+                             help="immunize many images as one batch on the card")
+    _add_dataclass_args(p_batch, TrainConfig)
+    p_batch.add_argument("--images", nargs="+", type=Path, required=True)
+    p_batch.add_argument("--prompts", nargs="*", default=None)
+
+    p_sweep = sub.add_parser("sweep", help="grid sweep (run_all)")
+    _add_dataclass_args(p_sweep, SweepConfig)
+    p_sweep.add_argument("--n-prompts-grid", nargs="*", type=str, default=None,
+                         help="e.g. 1 10 25 all")
+    p_sweep.add_argument("--n-noises-grid", nargs="*", type=str, default=None,
+                         help="e.g. 1 3 5 none")
+    # the cells' TrainConfig overrides (api.sweep's train_overrides)
+    p_sweep.add_argument("--model-family", default=None, help="e.g. tiny on the CPU")
+    p_sweep.add_argument("--image-size", type=int, default=None)
+
+    for p in (p_imm, p_eval, p_batch, p_sweep):
         p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
     args = parser.parse_args(argv)
@@ -103,6 +133,26 @@ def main(argv=None) -> int:
             cfg.prompts = list(args.prompts)
         api.immunize(cfg, device=args.device, resume_from=args.resume_from)
         print(f"adversarial image -> {Path(cfg.output_path) / 'adversarial_image.png'}")
+        return 0
+
+    if args.command == "immunize-batch":
+        cfg = _build_cfg(TrainConfig, args)
+        if args.prompts:
+            cfg.prompts = list(args.prompts)
+        results = api.immunize_batch(cfg, args.images, device=args.device)
+        print(f"{len(results)} images immunized -> {cfg.output_path}")
+        return 0
+
+    if args.command == "sweep":
+        cfg = _build_cfg(SweepConfig, args)
+        if args.n_prompts_grid:
+            cfg.n_prompts_grid = _parse_grid(args.n_prompts_grid)
+        if args.n_noises_grid:
+            cfg.n_noises_grid = _parse_grid(args.n_noises_grid)
+        overrides = {k: getattr(args, k) for k in ("model_family", "image_size")
+                     if getattr(args, k) is not None}
+        results = api.sweep(cfg, device=args.device, train_overrides=overrides or None)
+        print(f"{len(results)} sweep cells -> {cfg.output_root}")
         return 0
 
     from PIL import Image

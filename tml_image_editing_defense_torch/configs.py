@@ -1,7 +1,7 @@
-"""Configuration: the immunization and evaluation configs and the prompt banks.
+"""Configuration: the immunization, evaluation and sweep configs and the prompt banks.
 
 Port of ``tml_image_editing_defense_tpu/configs.py`` (``TrainConfig``,
-``InferenceConfig`` and the prompt data).  Every field, default and the
+``InferenceConfig``, ``SweepConfig`` and the prompt data).  Every field, default and the
 norm-conditional ``__post_init__`` override (reference configs.py:152-159)
 are the same, except two knobs that shaped the compiled TPU program and have
 no counterpart in an eager loop, which are dropped:
@@ -20,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 _TEXTURE_PROMPTS = (
     "",
@@ -323,3 +323,29 @@ class InferenceConfig:
             if isinstance(v, Path):
                 d[k] = str(v)
         return d
+
+
+@dataclass
+class SweepConfig:
+    """Grid-sweep configuration (reference ``run_all.py:23-93``): {images} x
+    {n_prompts in 1, 10, 25, all} x {n_noises in 1, 3, 5, fresh}.  On one
+    card the cells run one after another (``api.sweep``)."""
+
+    images_dir: Path = Path("./images")
+    output_root: Path = Path("./output/sweep")
+    n_prompts_grid: Tuple[Optional[int], ...] = (1, 10, 25, None)   # None = all prompts
+    n_noises_grid: Tuple[Optional[int], ...] = (1, 3, 5, None)      # None = fresh noise
+    n_optimization_steps: int = 250
+    use_sdxl: bool = False
+    use_lcm: bool = True
+    inference_n_steps: int = 4
+    inference_strength: float = 0.6
+    inference_guidance_scale: float = 7.5
+    seed: Optional[int] = None            # None = random per cell (run_all.py:41)
+    #: Evaluate each cell after training (run_all.py:69-93); False writes
+    #: the adversarial artifacts only.
+    run_inference: bool = True
+
+    def __post_init__(self):
+        self.images_dir = Path(self.images_dir)
+        self.output_root = Path(self.output_root)
