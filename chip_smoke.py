@@ -56,9 +56,23 @@ Phases, each fatal on failure:
    iteration on the same draws with ``remat_policy="full", remat_vae=True``
    and with ``eot_chunk=2``, each against the defaults (x_adv within 1e-3:
    the math is the same), with both one's seconds and peak;
+4b. the multi-rank tier on the one card (dp, :func:`dp_path`): on path
+   d's model the serial references and NCCL in a world of 1 (an
+   all-reduce, and path d's iteration through the mesh code with
+   ``eot_shards=1``); then 2 ranks spawned on the card with gloo
+   (``launch_host.spawn_local``), each with path d's model from the seed:
+   the sharded iteration (``eot_shards=2``) against the serial one (x_adv
+   within 1e-3, avg_loss 1e-4 relative, the ranks' iterates bit-equal),
+   ``api.immunize`` with ``eot_shards=2`` for 2 iterations (the artifacts
+   written once, the histories equal, each rank's launches those of its
+   block of reps), ``immunize_batch`` over data 2 x reps 1 against the
+   one-rank batched iteration, ``evaluate(eval_shards=2)``'s edits against
+   the serial batch's and one sharded universal step against the serial
+   step (each within 1e-3); each rank's launches, peak and seconds a step
+   (two ranks on one card: no multi-GPU scaling);
 5. the inpaint path: ``api.immunize`` with ``attack_mode="inpaint"`` and
    the L-inf preset (SD-1.5-inpaint at 512x512, f32, eps 0.1, step 0.006,
-   5 reps, 100 < t < 800 -> 3 steps) for 3 iterations, with the same checks
+   5 reps, 100 < t < 800 -> 3 steps) for 2 iterations, with the same checks
    (the ball is the L-inf ball); then one more iteration through the kernels
    and through plain attention with the plain update, held by the sign
    rule (a gradient element near 0 may take the other sign); then one under
@@ -124,14 +138,14 @@ Phases, each fatal on failure:
    ``adversarial_image.png`` and ``noise.npz`` at the ``InferenceConfig``
    defaults (SD-1.5 at 512x512, f32, PLMS with 100 steps at strength 0.6:
    61 UNet calls an edit, guidance 7.5), two of ``INFERENCE_PROMPTS`` and
-   one synthetic validation image: 4 cells in 2 batches of 2 pairs, K1 at
+   no validation image: 2 cells in 1 batch of 2 pairs, K1 at
    [8, 4096, 8, 40] (UNet) and [4, 4096, 1, 512] (VAE), held against its
    plain version and timed at both shapes in phase 3; the grids written,
    seconds per batch and per pair, peak memory and K1's launches; then one
    batch of 2 pairs under ``torch.profiler``;
 11. the SDXL path: ``api.immunize`` with ``use_sdxl=True`` at the
    ``TrainConfig`` defaults otherwise (SDXL at 512x512, f32, L2, 10 reps,
-   LCM K=4 -> 2 steps) for 3 iterations, with the diffusion path's checks;
+   LCM K=4 -> 2 steps) for 2 iterations, with the diffusion path's checks;
    at 512x512 every UNet attention is short (T <= 1024) and plain, so K1-K3
    run the VAE's mid-block only.  Then one iteration through the kernels
    and through plain attention with the plain update, one under
@@ -139,8 +153,9 @@ Phases, each fatal on failure:
    1024x1024: one (clean, adv) pair, Euler 10 steps at strength 0.6, K1
    against plain attention within 1e-3;
 12. SDXL evaluate: ``cli.main(["evaluate", "--use-sdxl", "true",
-   "--image-size", "1024", ...])`` at the ``InferenceConfig`` defaults
-   (Euler, SDXL without LCM: 100 steps at strength 0.6, guidance 7.5, f32),
+   "--image-size", "1024", "--n-steps", "20", ...])`` at the
+   ``InferenceConfig`` defaults otherwise (Euler, SDXL without LCM: 20
+   steps at strength 0.6, 12 UNet calls, guidance 7.5, f32),
    one prompt, n_noise 1, no validation images: one cell, its edits one
    after another (batch_edits is off at 1024x1024), on a synthetic
    1024x1024 source and an adversarial PNG made from it with a seeded
@@ -170,7 +185,7 @@ Phases, each fatal on failure:
    with ``TrainConfig(use_sdxl=True, image_size=1024, dtype="bfloat16",
    remat_policy="full", remat_vae=True)`` (the JAX package's configuration,
    scripts/probe_sdxl_1024.py:134-140; 10 reps, LCM K=4 -> 2 UNet steps)
-   for 3 iterations, s/iteration after the first, with the diffusion
+   for 2 iterations, s/iteration after the first, with the diffusion
    path's checks, K1-K4 launched as ``pgd_launches`` predicts from the UNet
    config, the VAE mid-blocks and the remat recompute; one iteration under
    ``torch.profiler``; its useful FLOPs and their share of the bf16 peak;
@@ -178,7 +193,7 @@ Phases, each fatal on failure:
    the plain update on the same draws (the updates' L2 difference within
    ``XL1K_BF16_GATE`` of the update, beside the noise floor it measures);
    then ``api.immunize_batch`` on xl1k's model and config over 2 images
-   (b1k) for 3 iterations, with path b's checks, xl1k's launches per
+   (b1k) for 2 iterations, with path b's checks, xl1k's launches per
    iteration, each iteration's seconds (timed as xl1k's steps) and the
    peak, and one batched
    iteration under ``torch.profiler`` (device busy time, idle share); then
@@ -216,13 +231,20 @@ H100_BYTES_PER_S = 3.35e12      # HBM3
 UNET_SHAPE, VAE_SHAPE, IMAGE_SHAPE = (2, 4096, 8, 40), (1, 4096, 1, 512), (1, 3, 512, 512)
 ENC_BATCH = 8
 ENC_ATTN_SHAPE, ENC_IMAGE_SHAPE = (ENC_BATCH, 4096, 1, 512), (ENC_BATCH, 3, 512, 512)
-ITERATIONS = 3          # of each immunize path
+ITERATIONS = 3          # of the diffusion path (d, its resume and m)
+#: of the inpaint and SDXL 512x512 paths (i, xl), cut from 3 to make room
+#: for path dp under the time limit
+SHORT_ITERATIONS = 2
 ENC_STEPS = 5           # of the encoder attack
 #: evaluate: api.evaluate's eval_batch_size, 2 cells of (clean, adv) x CFG
 #: through the UNet and (clean, adv) x cells through the VAE
 EVAL_BATCH = 2
 EVAL_UNET_SHAPE, EVAL_VAE_SHAPE = (4 * EVAL_BATCH, 4096, 8, 40), (2 * EVAL_BATCH, 4096, 1, 512)
 EVAL_PROMPTS = 2        # the first two of INFERENCE_PROMPTS
+#: the SDXL evaluation's steps (Euler at strength 0.6: 12 UNet calls an
+#: edit), cut from the InferenceConfig default of 100 (60 calls) for path
+#: dp's time
+SDXL_EVAL_STEPS = 20
 #: SDXL is trained at 512x512 (the reference's dataset transform) and
 #: evaluated at its native 1024x1024, one cell at a time; there K1 runs the
 #: UNet's 64x64 level (2 images x CFG, 10 heads of 64) and the VAE
@@ -240,10 +262,11 @@ UNIVERSAL_STEPS, UNIVERSAL_VIS_EVERY, UNIVERSAL_IMAGES, UNIVERSAL_SDXL_STEPS = 5
 UX_UNET_SHAPE, UX_VAE_SHAPE = (2, 4096, 10, 64), (1, 16384, 1, 512)
 #: SDXL immunize at its native 1024x1024 in bf16 (xl1k, the JAX package's
 #: scripts/probe_sdxl_1024.py configuration): remat "full" with remat_vae,
-#: 10 reps, 3 iterations; K1-K3 in bf16 at the universal-sdxl shapes (the
+#: 10 reps, 2 iterations (cut from 3 for path dp's time); K1-K3 in bf16 at
+#: the universal-sdxl shapes (the
 #: UNet's 64x64 level for the CFG pair, the VAE mid-block), K4 in bf16 at
 #: the 1024x1024 image
-XL1K_SIZE, XL1K_ITERATIONS, XL1K_IMAGE_SHAPE = 1024, 3, (1, 3, 1024, 1024)
+XL1K_SIZE, XL1K_ITERATIONS, XL1K_IMAGE_SHAPE = 1024, 2, (1, 3, 1024, 1024)
 #: batched immunization (b): ``cli.main(["immunize-batch", ...])`` over
 #: BATCH_IMAGES images at the TrainConfig defaults (SD-1.5 512x512 f32) for
 #: BATCH_ITERATIONS iterations; K1-K3 at the UNet's 64x64 level for the
@@ -1580,11 +1603,11 @@ def evaluate_gate(model, clean, adv, layers, sampler: str = "plms") -> dict:
     return out
 
 
-def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, val_image: Path,
-                  tmp: Path) -> dict:
+def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, tmp: Path) -> dict:
     """``cli.main(["evaluate", ...])`` on the card at the InferenceConfig
     defaults with two prompts, ``adv_dir``'s adversarial image and noise
-    pool, and one validation image; every count set to 0 just before and
+    pool, and no validation image (one batch: a validation image's second
+    batch went for path dp's time); every count set to 0 just before and
     read just after.  Per batch of 2 cells K1 runs once in the VAE encode,
     once in the decode and 5 times in each of the 61 UNet calls."""
     import torch
@@ -1595,13 +1618,12 @@ def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, val_i
     from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
     from tml_image_editing_defense_torch.models.unet import SD15_UNET
 
-    (tmp / "val.txt").write_text(f"{val_image}\n")
     out_dir = tmp / "eval"
     prompts = INFERENCE_PROMPTS[:EVAL_PROMPTS]
     args = ["evaluate", "--adversarial-image", str(adv_dir / "adversarial_image.png"),
             "--noise-pool", str(adv_dir / "noise.npz"), "--source-image-path", str(source),
             "--target-image-path", str(target), "--output-path", str(out_dir), "--n-noise", "1",
-            "--validation-images-path", str(tmp / "val.txt"), "--prompts", *prompts]
+            "--validation-images-path", str(tmp / "no_validation.txt"), "--prompts", *prompts]
     for kern in kernels:
         kern.launches = 0
     before = torch.cuda.memory_allocated()
@@ -1614,7 +1636,7 @@ def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, val_i
     launches = {kern.symbol: kern.launches for kern in kernels}
     cfg = InferenceConfig()
     unet_steps = PLMSSampler(make_noise_schedule()).plan(cfg.n_steps, cfg.strength).num_steps
-    batches = 2                             # the source image's cells, the validation image's
+    batches = 1                             # the source image's cells
     at_shape = {"unet": batches * unet_steps * unet_long_attentions(SD15_UNET, cfg.image_size),
                 "vae": batches * 2}
     expected = {kern.symbol: 0 for kern in kernels}
@@ -1627,10 +1649,8 @@ def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, val_i
     size = cfg.image_size
     for p in prompts:
         stem = "-".join(f"{p}, detailed"[:30].split())
-        for name, width in ((f"{stem}_noise_0.png", 5 * size),
-                            (f"val_{val_image.stem}_{stem}_noise_0.png", 4 * size)):
-            with Image.open(out_dir / name) as grid:
-                require(grid.size[0] == width and grid.size[1] > size, (name, grid.size))
+        with Image.open(out_dir / f"{stem}_noise_0.png") as grid:
+            require(grid.size[0] == 5 * size and grid.size[1] > size, (stem, grid.size))
     return {"wall_s": wall, "dispatch_s": dispatch, "s_per_pair": [d / EVAL_BATCH for d in dispatch],
             "unet_steps": unet_steps, "cells": batches * EVAL_BATCH,
             "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
@@ -1816,7 +1836,7 @@ def sdxl_evaluate_path(cli, kernels, images: dict, tmp: Path) -> dict:
             "--source-image-path", str(paths["source"]),
             "--target-image-path", str(paths["target"]), "--output-path", str(out_dir),
             "--n-noise", "1", "--validation-images-path", str(tmp / "no_validation.txt"),
-            "--prompts", prompt]
+            "--n-steps", str(SDXL_EVAL_STEPS), "--prompts", prompt]
     for kern in kernels:
         kern.launches = 0
     before = torch.cuda.memory_allocated()
@@ -1828,7 +1848,8 @@ def sdxl_evaluate_path(cli, kernels, images: dict, tmp: Path) -> dict:
     require(rc == 0, f"SDXL evaluate exited {rc}")
     launches = {kern.symbol: kern.launches for kern in kernels}
     cfg = InferenceConfig()
-    unet_steps = EulerSampler(make_noise_schedule()).plan(cfg.n_steps, cfg.strength).num_steps
+    unet_steps = EulerSampler(make_noise_schedule()).plan(SDXL_EVAL_STEPS,
+                                                          cfg.strength).num_steps
     at_shape = {"unet": unet_steps * unet_long_attentions(SDXL_UNET, size), "vae": 2}
     expected = {kern.symbol: 0 for kern in kernels}
     expected["tid_flash_fwd"] = sum(at_shape.values())
@@ -2337,6 +2358,338 @@ def sweep_path(cli, api, kernels, images_dir: Path, out_root: Path, per_cell: di
             "expected_launches": expected, "per_cell_launches": per_cell}
 
 
+#: path dp: the ranks spawned on the one card, the shards of the sharded
+#: gates, and the iterations of its ``api.immunize``
+DP_RANKS, DP_ITERATIONS = 2, 2
+#: gates 3 and 5 take fewer reps than path d's 10 (a batched iteration and
+#: a universal step each, held against one rank's)
+DP_BATCH_REPS = 2
+
+
+def dp_model(api, cfg):
+    """Path d's model, built as ``api.immunize`` builds it from ``cfg``."""
+    import torch
+
+    return api._cfg_model(cfg, torch.device("cuda"), torch.float32,
+                          api._train_attn_chunk(cfg.image_size))
+
+
+def dp_universal(model, source: Path):
+    """The universal gate's inputs at ``universal_attack``'s defaults on
+    ``model``: the config, the TAESD preview (seeded), the prompt bank, the
+    source image and one step's draws from a seeded generator."""
+    import torch
+
+    from tml_image_editing_defense_torch.attack import universal
+    from tml_image_editing_defense_torch.core.image_ops import load_image
+    from tml_image_editing_defense_torch.models.tiny_vae import build_tiny_autoencoder
+
+    cfg = universal.UniversalConfig(image_size=512)
+    preview = build_tiny_autoencoder("taesd", device="cuda",
+                                     generator=torch.Generator(device="cuda").manual_seed(1))
+    prompts = [(cfg.default_prompt + " " + e).strip() for e in cfg.edit_prompts]
+    bank = model.embed_prompt_bank(prompts)
+    src = torch.from_numpy(load_image(source, 512)).cuda()
+    draws = universal.sample_universal_draws(
+        torch.Generator(device="cuda").manual_seed(9), cfg.grad_reps, len(prompts),
+        model.latent_shape[1:], cfg.timestep_range)
+    return cfg, preview, bank, src, draws
+
+
+@contextlib.contextmanager
+def recorded_edits(out: list):
+    """While the block runs, every ``Img2ImgPipeline.edit_pairs`` call
+    appends its edits ([P, 2, 3, H, W], on the host) to ``out``."""
+    from tml_image_editing_defense_torch.pipelines.img2img import Img2ImgPipeline
+
+    edit = Img2ImgPipeline.edit_pairs
+
+    def recording(self, *a, **k):
+        o = edit(self, *a, **k)
+        out.append(o.detach().float().cpu())
+        return o
+
+    Img2ImgPipeline.edit_pairs = recording
+    try:
+        yield out
+    finally:
+        Img2ImgPipeline.edit_pairs = edit
+
+
+def dp_evaluate(api, spec, model, eval_batch_size: int, eval_shards: int, out_dir: Path):
+    """``api.evaluate`` of gate 4 on path d's adversarial image: the first
+    two ``INFERENCE_PROMPTS``, one fresh noise each, PLMS 10 steps at 0.6;
+    returns its grids and recorded edits."""
+    import numpy as np
+    from PIL import Image
+
+    from tml_image_editing_defense_torch.configs import INFERENCE_PROMPTS, InferenceConfig
+
+    cfg = InferenceConfig(source_image_path=spec["source"], target_image_path=spec["target"],
+                          output_path=out_dir, n_steps=10, eval_shards=eval_shards,
+                          validation_images_path=None)
+    edits = []
+    with recorded_edits(edits):
+        grids = api.evaluate(cfg, Image.open(spec["adversarial"]).convert("RGB"),
+                             INFERENCE_PROMPTS[:EVAL_PROMPTS], model=model,
+                             eval_batch_size=eval_batch_size)
+    return [np.asarray(g) for g in grids], edits
+
+
+def dp_rank(spec: dict) -> dict:
+    """One rank of path dp (gloo, on the one card with the other rank):
+    path d's model from its seed, then gates 1-5 (:func:`dp_path`), each
+    kernel's launches counted around ``api.immunize``, the gates' results
+    on the host for the parent."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from tml_image_editing_defense_torch import api
+    from tml_image_editing_defense_torch.ops import flash_attention as fa
+    from tml_image_editing_defense_torch.ops import pgd_kernels as pk
+    from tml_image_editing_defense_torch.parallel.eot import (
+        make_sharded_eot_pgd_step,
+        make_sharded_universal_step,
+    )
+    from tml_image_editing_defense_torch.parallel.mesh import REPS_AXIS, make_mesh, world
+    from tml_image_editing_defense_torch.utils.device import set_numerics
+
+    set_numerics("float32")
+    kernels = fa.KERNELS + pk.KERNELS
+    rank, size = world()
+    out = {"rank": rank, "world": size, "backend": str(dist.get_backend()),
+           "device": torch.cuda.get_device_name(torch.cuda.current_device())}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg = spec["cfg"]
+    model = dp_model(api, cfg)
+    out["build_s"] = time.perf_counter() - t0
+    src, tgt = (load_batch([p], 512) for p in (spec["source"], spec["target"]))
+    sampler, plan, data, draws = inputs = one_iteration_inputs(model, cfg, src, tgt)
+    mesh = make_mesh({REPS_AXIS: size})
+
+    # gate 1: the sharded iteration on path d's draws
+    step = make_sharded_eot_pgd_step(model, sampler, plan, cfg, mesh, decode_vis=False)
+    x, aux = step(data.source, data, draws)
+    out["gate1"] = {"x_adv": x.cpu(), "avg_loss": aux["avg_loss"].item()}
+
+    # gate 2: api.immunize with eot_shards, every count set to 0 just before
+    for kern in kernels:
+        kern.launches = 0
+    t0 = time.perf_counter()
+    res = api.immunize(dataclasses.replace(cfg, eot_shards=size,
+                                           n_optimization_steps=DP_ITERATIONS), model=model)
+    torch.cuda.synchronize()
+    out["immunize"] = {"wall_s": time.perf_counter() - t0, "history": res.history,
+                       "x_adv": res.x_adv.cpu(),
+                       "launches": {k.symbol: k.launches for k in kernels}}
+    del res
+    # one more sharded iteration, warm, both ranks started together
+    dist.barrier()
+    t0 = time.perf_counter()
+    step(data.source, data, draws)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    del step, inputs, data, draws, x, aux
+
+    # gate 3: immunize_batch over data ranks, an image a rank, 1 iteration
+    bcfg = dataclasses.replace(cfg, derive_norm_hyperparams=False, grad_reps=DP_BATCH_REPS,
+                               n_optimization_steps=1, output_path=spec["batch_out"])
+    results = api.immunize_batch(bcfg, spec["batch_images"], model=model,
+                                 seeds=spec["batch_seeds"])
+    out["batch"] = [r.x_adv.cpu() for r in results]
+    del results
+
+    # gate 4: evaluate with its two cells over the ranks, one a rank
+    grids, edits = dp_evaluate(api, spec, model, 1, size, spec["eval_out"])
+    out["evaluate"] = {"grids": grids, "edits": edits}
+
+    # gate 5: one universal step with its reps over the ranks
+    ucfg, preview, bank, usrc, udraws = dp_universal(model, spec["source"])
+    pert, loss = make_sharded_universal_step(model, ucfg, bank, mesh, preview=preview)(
+        torch.zeros_like(usrc), usrc, udraws)
+    out["universal"] = {"pert": pert.cpu(), "loss": loss.item()}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, preview, bank
+    return out
+
+
+def dp_path(api, kernels, model, tmp: Path, source: Path, target: Path, adversarial: Path,
+            batch_images) -> dict:
+    """Path dp: the multi-rank tier on the one card.  First, in this
+    process, the references on path d's ``model`` (the serial iteration on
+    path d's draws, the one-rank batched iteration, the serial edits and
+    the serial universal step) and NCCL in a world of 1 (an all-reduce, and
+    the sharded iteration with ``eot_shards=1`` through the mesh code, its
+    collectives on NCCL).  Then DP_RANKS ranks spawned on the card with
+    gloo (NCCL refuses two ranks on one device), each on path d's model
+    from the same seed, which must hold:
+
+    1. the sharded iteration (``eot_shards=2``) against the serial one:
+       x_adv within 1e-3, avg_loss within 1e-4 relative, the ranks'
+       iterates bit-equal;
+    2. ``api.immunize(TrainConfig(eot_shards=2))`` for DP_ITERATIONS
+       iterations: the artifacts written once, equal histories, each
+       kernel launched as the rank's block of reps implies;
+    3. ``immunize_batch`` over data 2 x reps 1, an image a rank, one
+       iteration: within 1e-3 of the one-rank batched iteration;
+    4. ``evaluate(eval_shards=2)``, a batch of 2 pairs split over the
+       ranks: the edits within 1e-3 of the serial batch's, the grids written
+       once;
+    5. one sharded universal step against the serial step: within 1e-3.
+
+    Two ranks share one card: their seconds are no multi-GPU scaling."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tml_image_editing_defense_torch.attack.pgd import make_pgd_step
+    from tml_image_editing_defense_torch.attack.universal import make_universal_step
+    from tml_image_editing_defense_torch.configs import TrainConfig
+    from tml_image_editing_defense_torch.launch_host import spawn_local
+    from tml_image_editing_defense_torch.models.unet import SD15_UNET
+    from tml_image_editing_defense_torch.parallel import sweep as psweep
+    from tml_image_editing_defense_torch.parallel.eot import make_sharded_eot_pgd_step
+    from tml_image_editing_defense_torch.parallel.mesh import (
+        REPS_AXIS,
+        destroy_distributed,
+        init_distributed,
+        make_mesh,
+    )
+
+    t_phase = time.perf_counter()
+    free_card()
+    cfg = TrainConfig(source_image_path=source, target_image_path=target,
+                      output_path=tmp / "out_dp")
+    spec = {"cfg": cfg, "source": source, "target": target, "adversarial": adversarial,
+            "batch_images": list(batch_images), "batch_seeds": [50, 51],
+            "batch_out": tmp / "out_dp_batch", "eval_out": tmp / "out_dp_eval"}
+    out = {"ranks": DP_RANKS}
+
+    # the references, on path d's model in this process
+    t0 = time.perf_counter()
+    src, tgt = (load_batch([p], 512) for p in (source, target))
+    sampler, plan, data, draws = one_iteration_inputs(model, cfg, src, tgt)
+    x_ref, aux_ref = make_pgd_step(model, sampler, plan, cfg, decode_vis=False)(
+        data.source, data, draws)
+    bcfg = dataclasses.replace(cfg, derive_norm_hyperparams=False, grad_reps=DP_BATCH_REPS)
+    bsampler, bplan, _, bbatched, bdraws = batched_inputs(model, bcfg, spec["batch_images"],
+                                                          spec["batch_seeds"])
+    xb_ref, _ = psweep.make_batched_pgd_step(model, bsampler, bplan, bcfg)(
+        bbatched.source[:, 0], bbatched, bdraws)
+    del bbatched, bdraws
+    grids_ref, edits_ref = dp_evaluate(api, spec, model, 2, 1, tmp / "out_dp_eval_1")
+    ucfg, preview, bank, usrc, udraws = dp_universal(model, source)
+    pert_ref, loss_ref = make_universal_step(model, ucfg, bank, preview=preview)(
+        torch.zeros_like(usrc), usrc, udraws)
+    out["references_s"] = time.perf_counter() - t0
+
+    # NCCL in a world of 1: an all-reduce, then gate 1's step through the mesh
+    t0 = time.perf_counter()
+    init_distributed(device="cuda", init_method=f"file://{tmp / 'nccl_rendezvous'}",
+                     world_size=1, rank=0)
+    try:
+        probe = torch.arange(4.0, device="cuda")
+        dist.all_reduce(probe)
+        mesh = make_mesh({REPS_AXIS: 1})
+        x_n, aux_n = make_sharded_eot_pgd_step(model, sampler, plan, cfg, mesh,
+                                               decode_vis=False)(data.source, data, draws)
+        out["nccl_world_of_1"] = {
+            "backend": str(dist.get_backend()), "nccl_version": str(torch.cuda.nccl.version()),
+            "all_reduce": probe.tolist(), "x_adv_max_abs_diff": max_err(x_n, x_ref),
+            "avg_loss_rel_diff": abs(aux_n["avg_loss"].item() - aux_ref["avg_loss"].item())
+            / abs(aux_ref["avg_loss"].item()), "s": time.perf_counter() - t0}
+    finally:
+        destroy_distributed()
+    nccl = out["nccl_world_of_1"]
+    require(nccl["all_reduce"] == [0.0, 1.0, 2.0, 3.0] and "nccl" in nccl["backend"]
+            and nccl["x_adv_max_abs_diff"] <= 1e-3 and nccl["avg_loss_rel_diff"] <= 1e-4,
+            ("NCCL in a world of 1", nccl))
+    x_ref, xb_ref, pert_ref = x_ref.cpu(), xb_ref.cpu(), pert_ref.cpu()
+    avg_ref, loss_ref = aux_ref["avg_loss"].item(), loss_ref.item()
+    del preview, bank, usrc, udraws, data, draws, src, tgt, x_n, aux_n, aux_ref
+    free_card()
+
+    # the ranks
+    t0 = time.perf_counter()
+    ranks = spawn_local(dp_rank, DP_RANKS, (spec,), backend="gloo", device="cuda",
+                        workdir=tmp, timeout=900)
+    out["ranks_wall_s"] = time.perf_counter() - t0
+    # gate 1
+    g1 = [max_err(r["gate1"]["x_adv"], x_ref) for r in ranks]
+    out["gate1"] = {"x_adv_max_abs_diff": g1,
+                    "avg_loss_rel_diff": [abs(r["gate1"]["avg_loss"] - avg_ref) / abs(avg_ref)
+                                          for r in ranks],
+                    "ranks_bit_equal": all(torch.equal(r["gate1"]["x_adv"],
+                                                       ranks[0]["gate1"]["x_adv"]) for r in ranks)}
+    require(max(g1) <= 1e-3 and max(out["gate1"]["avg_loss_rel_diff"]) <= 1e-4
+            and out["gate1"]["ranks_bit_equal"], ("dp gate 1", out["gate1"]))
+    # gate 2: launches per rank as its block of reps implies (pgd_launches
+    # at the rank's reps), the target encode on each rank and the vis decodes
+    # of iterations 0 and n-1 on the writing rank only
+    d_steps = plan.num_steps
+    per_it = pgd_launches(SD15_UNET, dataclasses.replace(cfg, derive_norm_hyperparams=False,
+                                                         grad_reps=cfg.grad_reps // DP_RANKS),
+                          d_steps)
+    n_vis = len({0, DP_ITERATIONS - 1})
+    expected = [{k.symbol: DP_ITERATIONS * per_it.get(k.symbol, 0)
+                 + (1 + (n_vis if r == 0 else 0) if k.symbol == "tid_flash_fwd" else 0)
+                 for k in kernels} for r in range(DP_RANKS)]
+    launches = [r["immunize"]["launches"] for r in ranks]
+    require(launches == expected, ("dp launches by rank", launches, expected))
+    hist = [r["immunize"]["history"] for r in ranks]
+    require(all(h == hist[0] for h in hist) and len(hist[0]) == DP_ITERATIONS
+            and all(math.isfinite(v) for h in hist[0] for v in h.values()), ("dp histories", hist))
+    require(all(torch.equal(r["immunize"]["x_adv"], ranks[0]["immunize"]["x_adv"]) for r in ranks),
+            "dp: the ranks' iterates differ after api.immunize")
+    rows = [json.loads(line) for line in (cfg.output_path / "metrics.jsonl").read_text()
+            .splitlines()]
+    require(sorted(r["step"] for r in rows) == list(range(DP_ITERATIONS)), ("dp metrics", rows))
+    for name in ("adversarial_image.png", "noise.npz"):
+        require((cfg.output_path / name).is_file(), f"dp: missing {name}")
+    dist_l2 = torch.linalg.vector_norm(ranks[0]["immunize"]["x_adv"]
+                                       - load_batch([source], 512).cpu()).item()
+    require(dist_l2 <= cfg.eps + 1e-3, f"dp: |x_adv - src|_2 = {dist_l2}")
+    t_rows = {r["step"]: r["t"] for r in rows}
+    out["immunize"] = {"launches_by_rank": launches, "history": hist[0], "dist": dist_l2,
+                       "wall_s_by_rank": [r["immunize"]["wall_s"] for r in ranks],
+                       "s_per_iteration_after_first": t_rows[DP_ITERATIONS - 1] - t_rows[0]}
+    out["launches"] = {k: sum(lr[k] for lr in launches) for k in launches[0]}
+    out["step_s_by_rank"] = [r["step_s"] for r in ranks]
+    out["peak_gb_by_rank"] = [r["peak_gb"] for r in ranks]
+    out["build_s_by_rank"] = [r["build_s"] for r in ranks]
+    # gate 3
+    g3 = [max(max_err(x, xb_ref[i:i + 1]) for i, x in enumerate(r["batch"])) for r in ranks]
+    out["gate3_x_adv_max_abs_diff"] = g3
+    require(max(g3) <= 1e-3 and all(len(r["batch"]) == 2 for r in ranks), ("dp gate 3", g3))
+    for p in spec["batch_images"]:
+        require((spec["batch_out"] / p.stem / "adversarial_image.png").is_file(),
+                f"dp: missing batch artifact of {p.stem}")
+    # gate 4: rank r edited cell r; every rank holds every grid
+    serial = torch.cat(edits_ref)
+    g4 = []
+    for rk in ranks:
+        (mine,) = rk["evaluate"]["edits"]
+        g4.append(max_err(mine[0], serial[rk["rank"]]))
+        require(all(np.abs(g.astype(np.int16) - ref.astype(np.int16)).max() <= 1
+                    for g, ref in zip(rk["evaluate"]["grids"], grids_ref)), "dp: grids differ")
+    out["gate4_edit_max_abs_diff"] = g4
+    written = sorted(p.name for p in spec["eval_out"].glob("*.png"))
+    require(max(g4) <= 1e-3 and len(written) == EVAL_PROMPTS, ("dp gate 4", g4, written))
+    # gate 5
+    g5 = [max_err(r["universal"]["pert"], pert_ref) for r in ranks]
+    out["gate5_pert_max_abs_diff"] = g5
+    out["gate5_loss_rel_diff"] = [abs(r["universal"]["loss"] - loss_ref) / abs(loss_ref)
+                                  for r in ranks]
+    require(max(g5) <= 1e-3 and max(out["gate5_loss_rel_diff"]) <= 1e-4, ("dp gate 5", g5))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv) -> int:
     import argparse
     import dataclasses
@@ -2427,7 +2780,7 @@ def main(argv) -> int:
     held = report["held_after_gb"] = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for i in range(1, 4 + 2 * ENC_BATCH):
+        for i in range(1, 3 + 2 * ENC_BATCH):
             synthetic_image(tmp / f"image{i}.png", i)
         source, target = tmp / "image1.png", tmp / "image2.png"
 
@@ -2484,6 +2837,43 @@ def main(argv) -> int:
                   f"{g['changed']['s']:.2f} s, peak {g['changed']['peak_gb']:.2f} GB", flush=True)
         del inputs
         free_card()
+
+        # ---- the multi-rank tier on the one card (dp) ----------------------
+        # references on path d's model here, then DP_RANKS ranks on the card
+        # (gloo), each with path d's model from the seed: gates 1-5 and
+        # api.immunize with eot_shards; per rank per iteration K1-K3 run the
+        # shared encode and its block of reps (pgd_launches at grad_reps /
+        # DP_RANKS), K4 once
+        dpr = report["dp_path"] = dp_path(
+            api, kernels, result.model, tmp, source, target, tmp / "out" / "adversarial_image.png",
+            [tmp / "image3.png", tmp / "image4.png"])
+        nccl = dpr["nccl_world_of_1"]
+        print(f"[dp] NCCL {nccl['nccl_version']} in a world of 1 ({nccl['backend']}): all_reduce "
+              f"{nccl['all_reduce']}; path d's iteration through the mesh code (eot_shards=1) "
+              f"|x_adv diff|_max = {nccl['x_adv_max_abs_diff']:.2e} <= 1e-3, avg_loss "
+              f"{nccl['avg_loss_rel_diff']:.1e} relative; {nccl['s']:.1f} s", flush=True)
+        print(f"[dp] {DP_RANKS} ranks on the one card (gloo): gate 1, the sharded iteration "
+              f"(eot_shards={DP_RANKS}) against the serial one: |x_adv diff|_max "
+              + ", ".join(f"{v:.2e}" for v in dpr["gate1"]["x_adv_max_abs_diff"])
+              + " <= 1e-3, avg_loss " + ", ".join(f"{v:.1e}" for v in dpr["gate1"]["avg_loss_rel_diff"])
+              + f" relative, the ranks' iterates bit-equal {dpr['gate1']['ranks_bit_equal']}; "
+              f"gate 2, api.immunize eot_shards={DP_RANKS}, {DP_ITERATIONS} iterations: "
+              f"{dpr['immunize']['s_per_iteration_after_first']:.2f} s/iteration after the first "
+              f"(metrics.jsonl), a warm step " + ", ".join(f"{v:.2f}" for v in dpr["step_s_by_rank"])
+              + " s by rank (path d alone: "
+              f"{diff['step_s_after_first']:.2f} s), histories equal, losses "
+              f"{[round(h['avg_loss'], 4) for h in dpr['immunize']['history']]}, |x_adv - src|_2 = "
+              f"{dpr['immunize']['dist']:.3f}, launches by rank {dpr['immunize']['launches_by_rank']}"
+              f"; gate 3 (immunize_batch, data {DP_RANKS} x reps 1) "
+              + ", ".join(f"{v:.2e}" for v in dpr["gate3_x_adv_max_abs_diff"])
+              + "; gate 4 (evaluate eval_shards=2, edits) "
+              + ", ".join(f"{v:.2e}" for v in dpr["gate4_edit_max_abs_diff"])
+              + "; gate 5 (universal step) " + ", ".join(f"{v:.2e}" for v in dpr["gate5_pert_max_abs_diff"])
+              + " <= 1e-3; peak " + ", ".join(f"{v:.2f}" for v in dpr["peak_gb_by_rank"])
+              + f" GB by rank; phase dp in {dpr['phase_s']:.1f} s (references "
+              f"{dpr['references_s']:.1f} s, ranks {dpr['ranks_wall_s']:.1f} s, their model builds "
+              + ", ".join(f"{v:.1f}" for v in dpr["build_s_by_rank"]) + " s)", flush=True)
+        PHASE_END_S["dp"] = time.perf_counter() - STARTED
 
         # ---- resume, then the evaluate gate, on the diffusion path's model ---
         res = report["resume"] = resume_path(
@@ -2711,7 +3101,7 @@ def main(argv) -> int:
         # encodes the image itself), and 1 L-inf update.  Outside: the target
         # encode and the 2 vis decodes (forwards).
         icfg = TrainConfig(source_image_path=source, target_image_path=target,
-                           output_path=tmp / "out_inpaint", n_optimization_steps=ITERATIONS,
+                           output_path=tmp / "out_inpaint", n_optimization_steps=SHORT_ITERATIONS,
                            attack_mode="inpaint", norm_type="linf")
         n_unet = LCMSampler(make_noise_schedule()).plan(
             icfg.n_denoising_steps_per_iteration, limit_t=800, min_t=101).num_steps
@@ -2724,7 +3114,7 @@ def main(argv) -> int:
         result = inpaint.pop("_result")
         inpaint.pop("_src"), inpaint.pop("_tgt")
         report["inpaint_path"] = inpaint
-        print(f"[inpaint] immunize sd15-inpaint 512x512 f32 L-inf, {ITERATIONS} iterations x "
+        print(f"[inpaint] immunize sd15-inpaint 512x512 f32 L-inf, {SHORT_ITERATIONS} iterations x "
               f"{icfg.grad_reps} reps x {n_unet} UNet steps: {inpaint['wall_s']:.1f} s in all, "
               f"{inpaint['s_per_iteration_after_first']:.2f} s/iteration after the first, peak "
               f"{inpaint['max_memory_allocated_gb']:.1f} GB; losses "
@@ -2738,7 +3128,7 @@ def main(argv) -> int:
         report["inpaint_profile"] = profile_iteration(result.model, icfg, inputs)
         print_profile("inpaint iteration", report["inpaint_profile"])
         report["inpaint_path"]["flops"] = fl = path_flops(
-            "sd15-inpaint", icfg, n_unet, ITERATIONS, inpaint["s_per_iteration_after_first"],
+            "sd15-inpaint", icfg, n_unet, SHORT_ITERATIONS, inpaint["s_per_iteration_after_first"],
             torch.float32)
         print_flops("inpaint", fl)
         del result, inputs, src, tgt
@@ -2757,8 +3147,7 @@ def main(argv) -> int:
         free_card(held, "encoder")
 
         # ---- evaluate, through the CLI --------------------------------------
-        ev = report["evaluate_path"] = evaluate_path(cli, kernels, tmp / "out", source, target,
-                                                     tmp / f"image{3 + 2 * ENC_BATCH}.png", tmp)
+        ev = report["evaluate_path"] = evaluate_path(cli, kernels, tmp / "out", source, target, tmp)
         print(f"[evaluate] evaluate sd15 512x512 f32, PLMS {ev['unet_steps']} UNet calls an edit, "
               f"{ev['cells']} cells in batches of {EVAL_BATCH} pairs: "
               + ", ".join(f"{d:.2f}" for d in ev["dispatch_s"]) + " s a batch, "
@@ -2787,7 +3176,7 @@ def main(argv) -> int:
         # encode and the 10 reps' decodes (VAE mid-block, forward + backward)
         # and K4 once; outside: the target encode and the 2 vis decodes.
         xcfg = TrainConfig(source_image_path=source, target_image_path=target,
-                           output_path=tmp / "out_sdxl", n_optimization_steps=ITERATIONS,
+                           output_path=tmp / "out_sdxl", n_optimization_steps=SHORT_ITERATIONS,
                            use_sdxl=True)
         per_it = xcfg.grad_reps * (2 * unet_long_attentions(SDXL_UNET, xcfg.image_size) + 1) + 1
         xl = immunize_path(
@@ -2797,7 +3186,7 @@ def main(argv) -> int:
             {"tid_flash_fwd": 1 + n_vis})
         result, src, tgt = xl.pop("_result"), xl.pop("_src"), xl.pop("_tgt")
         report["sdxl_path"] = xl
-        print(f"[sdxl] immunize sdxl 512x512 f32, {ITERATIONS} iterations x {xcfg.grad_reps} reps: "
+        print(f"[sdxl] immunize sdxl 512x512 f32, {SHORT_ITERATIONS} iterations x {xcfg.grad_reps} reps: "
               f"{xl['wall_s']:.1f} s in all, {xl['s_per_iteration_after_first']:.2f} s/iteration "
               f"after the first, peak {xl['max_memory_allocated_gb']:.1f} GB above the "
               f"{xl['allocated_before_gb']:.2f} GB allocated before; losses "
@@ -2810,7 +3199,8 @@ def main(argv) -> int:
         report["sdxl_profile"] = profile_iteration(result.model, xcfg, inputs)
         print_profile("SDXL PGD iteration", report["sdxl_profile"])
         report["sdxl_path"]["flops"] = fl = path_flops(
-            "sdxl", xcfg, d_steps, ITERATIONS, xl["s_per_iteration_after_first"], torch.float32)
+            "sdxl", xcfg, d_steps, SHORT_ITERATIONS, xl["s_per_iteration_after_first"],
+            torch.float32)
         print_flops("sdxl", fl)
         del inputs, src, tgt
         free_card()
@@ -3098,7 +3488,10 @@ def kernel_rows(flash, updates, report) -> list:
                 "real-weights": report["real_weights_path"]["launches"],
                 "batch": report["batch_path"]["launches"],
                 "batch-1024": report["batch_1024_path"]["launches"],
-                "sweep": report["sweep_path"]["launches"]}
+                "sweep": report["sweep_path"]["launches"],
+                "dp": report["dp_path"]["launches"]}
+    # path dp: its ranks' counts, summed and by rank
+    dp_by_rank = report["dp_path"]["immunize"]["launches_by_rank"]
     by_path = lambda sym: {path: counts[sym] for path, counts in launches.items()}  # noqa: E731
     at_shape = {(path, shape): report[f"{path.replace('-', '_')}_path"]["k1_launches_at_shape"][part]
                 for path, (unet, vae) in (("evaluate", (EVAL_UNET_SHAPE, EVAL_VAE_SHAPE)),
@@ -3126,7 +3519,7 @@ def kernel_rows(flash, updates, report) -> list:
                 for part, shape in (("unet", unet), ("vae", vae))}
     rows = []
     for path, shape in (("diffusion", UNET_SHAPE), ("real-weights", UNET_SHAPE),
-                        ("inpaint", UNET_SHAPE),
+                        ("dp", UNET_SHAPE), ("inpaint", UNET_SHAPE),
                         ("encoder", ENC_ATTN_SHAPE), ("evaluate", EVAL_UNET_SHAPE),
                         ("evaluate", EVAL_VAE_SHAPE), ("sdxl", VAE_SHAPE),
                         ("sdxl-evaluate", SDXL_EVAL_UNET_SHAPE),
@@ -3157,10 +3550,12 @@ def kernel_rows(flash, updates, report) -> list:
                 row["launches_at_shape"] = at_shape[(path, shape)]
             if (path, shape) in by_shape:
                 row["launches_at_shape"] = by_shape[(path, shape)][sym]
+            if path == "dp":
+                row["launches_by_rank"] = [counts[sym] for counts in dp_by_rank]
             rows.append(row)
     update_rows = [("pgd_l2_update", path, "tid_pgd_l2_update", 118, updates["l2"][key])
                    for path, key in (("diffusion", "f32"), ("real-weights", "f32"),
-                                     ("sdxl", "f32"), ("sdxl-1024", "bf16-1024"),
+                                     ("dp", "f32"), ("sdxl", "f32"), ("sdxl-1024", "bf16-1024"),
                                      ("batch", "batch3-f32"), ("batch-1024", "batch2-bf16-1024"),
                                      ("sweep", "f32"))]
     update_rows += [("pgd_linf_update", path, "tid_pgd_linf_update", 64,
@@ -3170,7 +3565,7 @@ def kernel_rows(flash, updates, report) -> list:
     update_rows.append(("pgd_l2_update_masked", "masked", "tid_pgd_l2_update_masked", 133,
                         updates["l2"]["f32-mask"]))
     for name, path, sym, line, r in update_rows:
-        rows.append({
+        row = {
             "name": name, "route": "cuda", "source": src_pgd, "replaces": f"{tpu_pgd}:{line}",
             "launches": launches[path][sym], "launches_by_path": by_path(sym),
             "max_abs_err": r["err"], "ms": r["host_call_ms"],
@@ -3178,7 +3573,10 @@ def kernel_rows(flash, updates, report) -> list:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": None, "path": path, "shape": r["shape"], "dtype": r["dtype"],
             "ok": True,
-        })
+        }
+        if path == "dp":
+            row["launches_by_rank"] = [counts[sym] for counts in dp_by_rank]
+        rows.append(row)
     return rows
 
 

@@ -134,10 +134,14 @@ def test_evaluate_without_a_device_raises_where_cuda_is_absent(tmp_path):
     {"eval_shards": 2},
 ])
 def test_evaluate_later_slices_raise_not_implemented(tmp_path, kw):
+    """``eval_shards=2`` needs two ranks; without a process group the world
+    is one rank, and ``evaluate`` raises ``ValueError`` before it builds a
+    model, as JAX api.py:659-663 does past the local device count (the
+    cells over ranks: tests/test_torch_parallel.py)."""
     src, _ = _images(tmp_path)
     cfg = InferenceConfig(source_image_path=src, target_image_path=src, model_family="tiny",
                           image_size=32, output_path=tmp_path / "eval", **kw)
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(ValueError, match="eval_shards=2 exceeds local device count 1"):
         api.evaluate(cfg, Image.open(src), device="cpu")
 
 

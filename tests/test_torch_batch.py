@@ -229,8 +229,12 @@ def test_immunize_batch_without_seeds_draws_per_image(tmp_path, tiny_model):
 
 
 @pytest.mark.parametrize("kw,field", [(dict(attack_mode="inpaint"), "attack_mode"),
-                                      (dict(eot_shards=2), "eot_shards")])
+                                      (dict(eot_shards=2),
+                                       "eot_shards=2 exceeds local device count 1")])
 def test_immunize_batch_refuses_inpaint_and_eot_shards(tmp_path, tiny_model, kw, field):
+    """No batched inpaint step (as in JAX); ``eot_shards=2`` needs a
+    (data, reps) mesh of ranks, and without a process group the world is
+    one rank (the 2-D mesh over ranks: tests/test_torch_parallel.py)."""
     with pytest.raises(ValueError, match=field):
         api.immunize_batch(_cfg(tmp_path, **kw), _images(tmp_path, n=2), device="cpu",
                            model=tiny_model)

@@ -1,7 +1,9 @@
 """The EOT batching knobs of the port's PGD iteration: ``eot_chunk`` (reps
 r0 .. r0+c-1 through the chain as one batch, CFG doubling it) and
-``eot_mode`` ("scan" in chunks, "vmap" all reps at once, "shard" refused
-until the multi-GPU slice), and ``eot_shards`` above 1 (refused likewise).
+``eot_mode`` ("scan" in chunks, "vmap" all reps at once, "shard" the scan,
+as in the JAX serial step), and ``eot_shards`` above 1, which needs that
+many ranks (``ValueError`` without a process group, as JAX's "exceeds local
+device count"; the ranks themselves: tests/test_torch_parallel.py).
 
 Batched reps sum their losses, so the gradient is the one-rep-at-a-time
 gradient up to the order of the convolutions' sums over a larger batch:
@@ -114,14 +116,20 @@ def test_eot_chunk_must_divide_grad_reps(tiny):
 
 @pytest.mark.parametrize("changes", [dict(eot_mode="shard"), dict(eot_shards=2)],
                          ids=["eot_mode=shard", "eot_shards=2"])
-def test_sharded_reps_wait_for_the_multi_gpu_slice(tmp_path, changes):
-    """``immunize`` refuses reps over cards before it builds anything, naming
-    the multi-GPU slice; the step refuses ``eot_mode="shard"`` too."""
+def test_sharded_reps_wait_for_the_multi_gpu_slice(tmp_path, tiny, changes):
+    """``eot_mode="shard"`` is the scan in the serial step (JAX
+    attack/pgd.py:316-323: every mode but "vmap"): the same iterate and
+    losses, bit for bit.  ``eot_shards=2`` without a process group is a
+    world of one rank: ``immunize`` raises ``ValueError`` (JAX api.py:168-171,
+    "exceeds local device count") before it builds anything."""
+    if "eot_mode" in changes:
+        x_ref, a_ref = _step(tiny)
+        x, aux = _step(tiny, **changes)
+        assert torch.equal(x, x_ref)
+        for name in ("avg_loss", "rec_loss", "pert_loss", "output_latent"):
+            assert torch.equal(aux[name], a_ref[name]), name
+        return
     cfg = TrainConfig(model_family="tiny", image_size=SIZE, output_path=tmp_path,
                       source_image_path=Path("missing.png"), **changes)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(ValueError, match="eot_shards=2 exceeds local device count 1"):
         api.immunize(cfg, device="cpu")
-    if "eot_mode" in changes:
-        # the step refuses while it is made, before it reads the model
-        with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-            make_pgd_step(None, None, None, cfg)

@@ -32,7 +32,9 @@ def test_importing_every_port_module_loads_no_jax():
                                              "models.isnet", "utils.flops",
                                              "utils.profiling", "models.lora",
                                              "models.checkpoint_io", "prepare_real_weights",
-                                             "parallel.sweep", "parallel.hosts")}
+                                             "parallel.sweep", "parallel.hosts",
+                                             "parallel.mesh", "parallel.eot",
+                                             "parallel.dp_eot", "launch_host")}
             <= set(mods))
     code = (
         "import importlib, sys\n"

@@ -400,5 +400,8 @@ def test_universal_attack_entry_point_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--eot-shards", "2"]])
 def test_universal_attack_refuses_later_slices(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="slice of the port"):
+    """``--eot-shards 2`` makes a ``reps`` mesh of 2 ranks, which a world of
+    one rank (no process group) cannot hold: ``ValueError``, as the JAX
+    ``make_mesh`` raises (the sharded step: tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="incompatible with 1 ranks"):
         universal_attack.main(["--dataset-dir", str(tmp_path), "--device", "cpu", *flags])

@@ -4,9 +4,10 @@
   ``attack_mode="diffusion"`` (the reference's live path) and
   ``attack_mode="inpaint"`` (PhotoGuard's attack on the 9-channel inpaint
   UNet, attack/inpaint.py), checkpoint/resume and preemption;
-- :func:`immunize_batch`: many images as one batch through the chain on
-  one card (the JAX ``immunize_batch`` with no mesh), each image with the
-  draws of its own one-image run;
+- :func:`immunize_batch`: many images as one batch through the chain,
+  each image with the draws of its own one-image run, the images over the
+  ranks of a ``data`` axis and each image's reps over a ``reps`` axis when
+  several ranks run (the JAX ``immunize_batch`` and its meshes);
 - :func:`evaluate` (reference ``Inference.run_inference``,
   main.py:431-589) and :func:`transfer_perturbation` (main.py:413-429);
 - :func:`sweep`, the grid of the reference's ``run_all.py``: images x
@@ -14,6 +15,16 @@
 
 Both take the caption prefix (main.py:64-72, 324-332); ``immunize`` also
 the salient-region mask (main.py:311-322), through ``aux_models``.
+
+Several ranks (``torch.distributed``, ``parallel/mesh.py``): every rank
+calls the same entry point with the same arguments (SPMD).  ``immunize``
+spreads the EOT reps over them (``cfg.eot_shards``), ``immunize_batch``
+and ``sweep`` the images (and with ``eot_shards`` each image's reps),
+``evaluate`` its cells (``cfg.eval_shards``).  The meshes span the ranks of
+one machine (``mesh.local_world_size``), as the JAX package's span
+``jax.local_devices()``.  The first rank of each machine writes the
+artifacts, the same files as one rank writes; every rank returns what one
+rank returns.
 
 ``immunize`` writes the reference's artifacts: ``adversarial_image.png``
 (the uint8 round-trip is part of the measured defense, main.py:618-621),
@@ -64,7 +75,19 @@ from tml_image_editing_defense_torch.core.rng import (
 )
 from tml_image_editing_defense_torch.core.samplers import make_sampler
 from tml_image_editing_defense_torch.models.model_zoo import DiffusionModel, build_model
-from tml_image_editing_defense_torch.parallel.sweep import batch_attack_data, run_batched_pgd
+from tml_image_editing_defense_torch.parallel.dp_eot import gather_images, make_dp_eot_pgd_step
+from tml_image_editing_defense_torch.parallel.eot import make_sharded_eot_pgd_step
+from tml_image_editing_defense_torch.parallel.mesh import (
+    DATA_AXIS,
+    REPS_AXIS,
+    AnyRankFlag,
+    gather_blocks,
+    is_writer,
+    local_world_size,
+    machine_barrier,
+    make_mesh,
+)
+from tml_image_editing_defense_torch.parallel.sweep import batch_attack_data
 from tml_image_editing_defense_torch.pipelines import Img2ImgPipeline
 from tml_image_editing_defense_torch.utils.checkpoint import load_attack_state, save_attack_state
 from tml_image_editing_defense_torch.utils.device import resolve_device, set_numerics
@@ -155,13 +178,56 @@ def _caption_prefix(cfg, image: Image.Image, device) -> str:
 def _check_supported(cfg: TrainConfig) -> None:
     if cfg.attack_mode not in ("diffusion", "inpaint"):
         raise ValueError(f"unknown attack_mode {cfg.attack_mode!r}")
-    if cfg.eot_shards not in (None, 1):
-        raise NotImplementedError(f"eot_shards={cfg.eot_shards} comes with the multi-GPU slice "
-                                  "of the port (one card: None or 1)")
     if cfg.attack_mode == "diffusion":
-        # eot_mode "shard" and an eot_chunk that does not divide the reps
+        # an unknown eot_mode and an eot_chunk that does not divide the reps
         # are refused before a model is built
         eot_chunk_size(cfg)
+    elif cfg.eot_shards and cfg.eot_shards > 1:
+        raise ValueError("attack_mode='inpaint' has no reps-sharded step yet; set eot_shards "
+                         "to 1/None")
+
+
+def _own_logger(name: str, cfg, output_dir) -> MetricsLogger:
+    """The logger an entry point makes for itself: the full one on the
+    writing rank, one that records nothing on the others."""
+    if is_writer():
+        return MetricsLogger(name=name, config=cfg.asdict(), output_dir=output_dir)
+    return MetricsLogger(name=name, use_wandb=False, verbose=False)
+
+
+def _check_eot_shards(cfg: TrainConfig, shards: int, local: int) -> None:
+    """``ValueError``, with the JAX package's words (api.py:164-171), unless
+    ``shards`` divides ``grad_reps`` and the machine's ``local`` ranks hold
+    them."""
+    if cfg.grad_reps % shards:
+        raise ValueError(f"eot_shards={shards} must divide grad_reps={cfg.grad_reps}")
+    if shards > local:
+        raise ValueError(f"eot_shards={shards} exceeds local device count {local} (the ranks "
+                         "of this machine)")
+
+
+def _reps_sharding(cfg: TrainConfig, mesh=None):
+    """The ``reps`` mesh of :func:`immunize` (JAX api.py:136-173), as
+    ``(mesh, n_shards)``; ``n_shards == 1`` is the serial step.
+
+    A mesh handed in must have a ``reps`` axis.  Otherwise
+    ``cfg.eot_shards`` None takes the largest divisor of ``grad_reps`` that
+    divides the machine's ranks (1 without a process group: nothing
+    changes); an explicit N must divide ``grad_reps`` and not exceed the
+    machine's ranks, else ``ValueError`` with the JAX package's words."""
+    if mesh is not None:
+        if REPS_AXIS not in mesh.shape:
+            raise ValueError(f"immunize() needs a mesh with a '{REPS_AXIS}' axis (got axes "
+                             f"{tuple(mesh.shape)}); data-axis meshes belong to immunize_batch()")
+        return mesh, mesh.shape[REPS_AXIS]
+    want, local = cfg.eot_shards, local_world_size()
+    if want is None:
+        want = max(d for d in range(1, min(local, cfg.grad_reps) + 1)
+                   if cfg.grad_reps % d == 0 and local % d == 0)
+    if want <= 1:
+        return None, 1
+    _check_eot_shards(cfg, want, local)
+    return make_mesh({REPS_AXIS: want}), want
 
 
 def immunize(
@@ -170,6 +236,7 @@ def immunize(
     model: Optional[DiffusionModel] = None,
     logger: Optional[MetricsLogger] = None,
     resume_from: Optional[Path] = None,
+    mesh=None,
 ) -> ImmunizeResult:
     """PGD immunization of one image (reference Trainer.run, main.py:47-142).
 
@@ -203,12 +270,20 @@ def immunize(
 
     The attack step's knobs reach the step through ``cfg``:
     ``remat_policy`` and ``remat_vae`` (what the backward recomputes),
-    ``eot_chunk`` and ``eot_mode`` (reps batched through the chain);
-    ``eot_shards`` above 1 and ``eot_mode="shard"`` wait for the multi-GPU
-    slice.  SDXL at its native 1024x1024 trains with
+    ``eot_chunk`` and ``eot_mode`` (reps batched through the chain; "shard"
+    is "scan"), and ``eot_shards``: the EOT reps over that many ranks of
+    the process group (``parallel/eot.py``; None takes what
+    :func:`_reps_sharding` finds, 1 without a process group), or over the
+    ``reps`` axis of ``mesh``.  Every rank of the group calls ``immunize``
+    alike; the first writes the artifacts, metrics and checkpoints, and a
+    stop signal on any rank stops every rank after the same iteration.
+    ``attack_mode="inpaint"`` has no sharded step (``ValueError``, as in
+    JAX).  SDXL at its native 1024x1024 trains with
     ``TrainConfig(use_sdxl=True, image_size=1024, dtype="bfloat16",
     remat_policy="full", remat_vae=True)``, as the JAX package runs it."""
     _check_supported(cfg)
+    reps_mesh, n_shards = (None, 1) if cfg.attack_mode == "inpaint" else _reps_sharding(cfg, mesh)
+    writer = is_writer()
     device = resolve_device(device)
     dtype = set_numerics(cfg.dtype)
     if model is None:
@@ -278,6 +353,9 @@ def immunize(
         def draw_sampler(gen):
             return sample_inpaint_draws(gen, cfg, len(cfg.prompts), lat_shape, plan.num_steps,
                                         dtype)
+    elif n_shards > 1:
+        step_fn = make_sharded_eot_pgd_step(model, sampler, plan, cfg, reps_mesh,
+                                            decode_vis=False)
 
     logged_steps = set()
 
@@ -299,18 +377,21 @@ def immunize(
 
     own_logger = logger is None
     if own_logger:
-        logger = MetricsLogger(name=cfg.experiment_name, config=cfg.asdict(),
-                               output_dir=cfg.output_path)
+        logger = _own_logger(cfg.experiment_name, cfg, cfg.output_path)
     try:
+        # every rank keeps the guard: a rank without it would die on the
+        # signal and leave the others waiting in a collective
         with preemption_guard() as preempted:
+            stop = preempted if reps_mesh is None else AnyRankFlag(preempted, reps_mesh)
             x_adv, history = run_pgd(model, sampler, plan, cfg, data, seed,
-                                     vis_callback=vis_callback,
+                                     vis_callback=vis_callback if writer else None,
                                      vis_needs_image=cfg.enable_visualization,
                                      step_fn=step_fn, draw_sampler=draw_sampler,
                                      x_init=x_init, start_iteration=start_it,
-                                     stop_flag=preempted, ckpt_callback=ckpt_callback,
+                                     stop_flag=stop,
+                                     ckpt_callback=ckpt_callback if writer else None,
                                      ckpt_interval=cfg.checkpoint_interval)
-        if history and "preempted_at" in history[-1]:
+        if history and "preempted_at" in history[-1] and writer:
             # the handling the reference's SLURM --signal=USR1@120 never got
             # (tml_project.slurm:7): save, so that a relaunch resumes
             stop_it = history[-1]["preempted_at"]
@@ -321,17 +402,36 @@ def immunize(
         logger.log_history(history, start_step=start_it, skip=logged_steps)
 
         adv_pil = image_ops.to_pil(x_adv)
-        out_dir = Path(cfg.output_path)
-        out_dir.mkdir(parents=True, exist_ok=True)
-        adv_pil.save(out_dir / "adversarial_image.png")
         pool_to_save = noise_pool if cfg.use_fixed_noise else None
-        if pool_to_save is not None:
-            save_noise_pool(out_dir / "noise.npz", pool_to_save)
+        if writer:
+            out_dir = Path(cfg.output_path)
+            out_dir.mkdir(parents=True, exist_ok=True)
+            adv_pil.save(out_dir / "adversarial_image.png")
+            if pool_to_save is not None:
+                save_noise_pool(out_dir / "noise.npz", pool_to_save)
         logger.log_image("final_adversarial_image", adv_pil)
     finally:
         if own_logger:
             logger.finish()
     return ImmunizeResult(adv_pil, x_adv, pool_to_save, history, model, mask_route)
+
+
+def _batch_mesh(cfg: TrainConfig, mesh=None):
+    """The mesh of :func:`immunize_batch` (JAX api.py:418-461): the one
+    handed in, else over the machine's ranks when there are several, a
+    ``data`` axis over all of them, or with ``eot_shards`` above 1 a
+    (``data``, ``reps``) mesh of ``eot_shards`` reps ranks an image; None on
+    one rank, where ``eot_shards`` above 1 raises."""
+    local, shards = local_world_size(), cfg.eot_shards or 1
+    if mesh is not None:
+        return mesh
+    if shards > 1:
+        _check_eot_shards(cfg, shards, local)
+        if local % shards:
+            raise ValueError(f"eot_shards={shards} must divide the local device count {local} "
+                             "for the 2-D batch mesh")
+        return make_mesh({DATA_AXIS: local // shards, REPS_AXIS: shards})
+    return make_mesh({DATA_AXIS: local}) if local > 1 else None
 
 
 def immunize_batch(
@@ -343,11 +443,12 @@ def immunize_batch(
     targets: Optional[Sequence[Union[str, Path]]] = None,
     seeds: Optional[Sequence[int]] = None,
     out_dirs: Optional[Sequence[Union[str, Path]]] = None,
+    mesh=None,
 ) -> List[ImmunizeResult]:
-    """Immunize many images as one batch on one card (JAX ``immunize_batch``,
-    api.py:378-562, with no mesh): ``cfg``'s attack, the images through the
-    chain together (``parallel.sweep.make_batched_pgd_step``), the
-    iterations in a host loop with no visualization and no host round trip.
+    """Immunize many images as one batch (JAX ``immunize_batch``,
+    api.py:378-562): ``cfg``'s attack, the images through the chain
+    together (``attack.pgd.make_batched_pgd_step``), the iterations in a
+    host loop with no visualization and no host round trip.
 
     Runs on the card unless ``device="cpu"``; raises when CUDA is absent and
     the CPU was not asked for.  ``model`` defaults to ``cfg``'s family
@@ -365,6 +466,14 @@ def immunize_batch(
     every image's set-up draws: each image draws its own, so identical
     sources give different results.
 
+    Several ranks (:func:`_batch_mesh`, or ``mesh``): the images split into
+    blocks over the ``data`` axis, the list padded with copies of the last
+    image to a multiple of its size (their results dropped, JAX
+    :503-510), and with a ``reps`` axis each image's reps over it
+    (``parallel/dp_eot.py``).  Each rank makes the set-up draws of every
+    image, so that the streams are those of one rank, and the attack data
+    of its own; the iterates and histories are gathered on every rank.
+
     Artifacts: ``adversarial_image.png`` and ``noise.npz`` (with
     ``use_fixed_noise``) in ``out_dirs[i]``, by default
     ``cfg.output_path/<stem>``; one ``MetricsLogger`` named
@@ -374,15 +483,12 @@ def immunize_batch(
 
     As in the JAX function, neither the salient mask nor the caption prefix
     applies: the prompts are formatted without a caption and no mask is
-    made.  ``attack_mode="inpaint"`` (no batched inpaint step) and
-    ``eot_shards`` above 1 (the multi-GPU slice) are refused."""
+    made.  ``attack_mode="inpaint"`` (no batched inpaint step) is refused."""
     if cfg.attack_mode != "diffusion":
         raise ValueError(f"attack_mode={cfg.attack_mode!r}: immunize_batch runs the diffusion "
                          "attack only (there is no batched inpaint step)")
-    if cfg.eot_shards not in (None, 1):
-        raise ValueError(f"eot_shards={cfg.eot_shards}: immunize_batch runs on one card "
-                         "(None or 1); reps over cards come with the multi-GPU slice")
     eot_chunk_size(cfg)
+    mesh = _batch_mesh(cfg, mesh)
     image_paths = [Path(p) for p in image_paths]
     targets = image_paths if targets is None else [Path(t) for t in targets]
     if seeds is not None and len(seeds) != len(image_paths):
@@ -409,36 +515,46 @@ def immunize_batch(
 
     shared = stream_generator(cfg.seed, SETUP_STREAM, device)
     lat_shape = model.latent_shape
-    datas, pools = [], []
-    for i, (path, target_path) in enumerate(zip(image_paths, targets)):
+    pools, target_eps = [], []
+    for i in range(len(image_paths)):
         setup = shared if seeds is None else stream_generator(seeds[i], SETUP_STREAM, device)
-        pool = make_noise_pool(setup, max(cfg.n_noise, 1), lat_shape, dtype, device)
-        target_eps = torch.randn(lat_shape, generator=setup, device=device, dtype=dtype)
-        datas.append(make_attack_data(model, cfg, load(path), load(target_path), bank, pool,
-                                      target_latent_eps=target_eps))
-        pools.append(pool)
+        pools.append(make_noise_pool(setup, max(cfg.n_noise, 1), lat_shape, dtype, device))
+        target_eps.append(torch.randn(lat_shape, generator=setup, device=device, dtype=dtype))
     if seeds is None:
         seeds = torch.randint(0, 2**62, (len(image_paths),), generator=shared,
                               device=device).tolist()
-    batched = batch_attack_data(datas)
-    del datas
+    # the images this rank attacks: a block of the list padded to the data axis
+    order = list(range(len(image_paths)))
+    step_fn = None
+    if mesh is not None:
+        order += order[-1:] * ((-len(order)) % mesh.size(DATA_AXIS))
+        order = [order[i] for i in mesh.block(DATA_AXIS, len(order))]
+        if mesh.size(REPS_AXIS) > 1:
+            step_fn = make_dp_eot_pgd_step(model, sampler, plan, cfg, mesh)
+    batched = batch_attack_data([
+        make_attack_data(model, cfg, load(image_paths[i]), load(targets[i]), bank, pools[i],
+                         target_latent_eps=target_eps[i]) for i in order])
 
     own_logger = logger is None
     if own_logger:
-        logger = MetricsLogger(name=f"{cfg.experiment_name}_batch", config=cfg.asdict(),
-                               output_dir=cfg.output_path)
+        logger = _own_logger(f"{cfg.experiment_name}_batch", cfg, cfg.output_path)
     results = []
     try:
-        x_advs, histories = run_batched_pgd(model, sampler, plan, cfg, batched, seeds)
+        x_advs, histories = run_pgd(model, sampler, plan, cfg, batched, [seeds[i] for i in order],
+                                    step_fn=step_fn)
+        del batched
+        if mesh is not None:
+            x_advs, histories = gather_images(mesh, x_advs, histories)
         for i, path in enumerate(image_paths):
             out_dir = Path(out_dirs[i]) if out_dirs is not None else Path(cfg.output_path) / path.stem
-            out_dir.mkdir(parents=True, exist_ok=True)
             x_adv = x_advs[i:i + 1]
             adv_pil = image_ops.to_pil(x_adv)
-            adv_pil.save(out_dir / "adversarial_image.png")
             pool = pools[i] if cfg.use_fixed_noise else None
-            if pool is not None:
-                save_noise_pool(out_dir / "noise.npz", pool)
+            if is_writer():
+                out_dir.mkdir(parents=True, exist_ok=True)
+                adv_pil.save(out_dir / "adversarial_image.png")
+                if pool is not None:
+                    save_noise_pool(out_dir / "noise.npz", pool)
             history = [{"avg_loss": h["avg_loss"]} for h in histories[i]]
             if history:
                 logger.log({"final_avg_loss": history[-1]["avg_loss"]}, step=i)
@@ -474,10 +590,17 @@ def transfer_perturbation(
     return out.astype(np.uint8)
 
 
-def _check_eval_supported(cfg: InferenceConfig) -> None:
-    if cfg.eval_shards not in (None, 1):
-        raise NotImplementedError(f"eval_shards={cfg.eval_shards} comes with the multi-GPU "
-                                  "slice of the port (one card: None or 1)")
+def _eval_shards(cfg: InferenceConfig) -> int:
+    """The ranks :func:`evaluate` splits its cells over (JAX api.py:655-664):
+    ``cfg.eval_shards``, None for every rank of the machine (1 without a
+    process group); more than the machine's ranks raise ``ValueError``."""
+    local = local_world_size()
+    if cfg.eval_shards is None:
+        return local
+    if cfg.eval_shards > local:
+        raise ValueError(f"eval_shards={cfg.eval_shards} exceeds local device count {local} (the "
+                         "ranks of this machine)")
+    return cfg.eval_shards
 
 
 def evaluate(
@@ -519,11 +642,21 @@ def evaluate(
     ``eval_batch_size`` (each 2 images x CFG through the UNet), the last
     batch padded with copies of its last cell so every batch has one shape;
     each batch's seconds (each cell's, when they run one at a time) go to
-    ``metrics.jsonl`` as ``edit_dispatch_s``."""
+    ``metrics.jsonl`` as ``edit_dispatch_s``.
+
+    ``cfg.eval_shards`` (:func:`_eval_shards`) above 1 splits each batch of
+    ``eval_batch_size`` cells a rank over that many ranks of a ``data``
+    axis (JAX api.py:655-700): the batch is padded to ``eval_batch_size``
+    times the ranks, each rank edits its block and the edits are gathered on
+    every rank.  Every rank draws every cell's noises from the same stream,
+    so the split changes no draw; the first rank writes the grids.  Edits one
+    at a time (``batch_edits`` off) are not split, as in JAX."""
     del training_prompts  # accepted for signature parity; unused (main.py:469)
-    _check_eval_supported(cfg)
+    n_shards = _eval_shards(cfg)
     if batch_edits is None:
         batch_edits = cfg.image_size < 1024
+    eval_mesh = make_mesh({DATA_AXIS: n_shards}) if batch_edits and n_shards > 1 else None
+    writer = is_writer()
     dtype = set_numerics(cfg.dtype)
     if model is None:
         model = _cfg_model(cfg, resolve_device(device), dtype, EVAL_ATTN_CHUNK)
@@ -543,7 +676,8 @@ def evaluate(
     perturbation = np.asarray(adversarial_image, np.float32) - np.asarray(source_pil, np.float32)
     caption = _caption_prefix(cfg, source_pil, device)
     out_dir = Path(cfg.output_path)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if writer:
+        out_dir.mkdir(parents=True, exist_ok=True)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=device, dtype=model.dtype)
@@ -580,15 +714,20 @@ def evaluate(
                 logger.log({"edit_dispatch_s": time.perf_counter() - t0, "edit_pairs": 1})
             return outs
         b = max(1, min(eval_batch_size, len(cells)))
+        per = b * (1 if eval_mesh is None else n_shards)
         outs = []
-        for i in range(0, len(cells), b):
-            part = cells[i:i + b]
-            padded = part + [part[-1]] * (b - len(part))
+        for i in range(0, len(cells), per):
+            part = cells[i:i + per]
+            padded = part + [part[-1]] * (per - len(part))
+            if eval_mesh is not None:
+                padded = [padded[j] for j in eval_mesh.block(DATA_AXIS, per)]
             stack = lambda j: (None if padded[0][j] is None                  # noqa: E731
                                else torch.stack([c[j] for c in padded]))
             t0 = time.perf_counter()
             o = pipeline.edit_pairs([c[0] for c in padded], pair.expand(b, *pair.shape),
                                     stack(2), stack(3), stack(4), **kw)
+            if eval_mesh is not None:
+                o = gather_blocks(eval_mesh, o, DATA_AXIS)
             o = o[:len(part)].cpu()
             logger.log({"edit_dispatch_s": time.perf_counter() - t0, "edit_pairs": len(part)})
             outs.extend(o)
@@ -597,8 +736,7 @@ def evaluate(
 
     own_logger = logger is None
     if own_logger:
-        logger = MetricsLogger(name=cfg.experiment_name, config=cfg.asdict(),
-                               output_dir=cfg.output_path)
+        logger = _own_logger(cfg.experiment_name, cfg, cfg.output_path)
     output_images: List[Image.Image] = []
     try:
         cells = collect_cells()
@@ -612,7 +750,7 @@ def evaluate(
                           f"Edit on Original ({prompt})", f"Edit on Adversarial ({prompt})"],
             )
             save_name = "-".join(prompt[:30].split()) if prompt else "empty_prompt"
-            if cfg.save_images:
+            if cfg.save_images and writer:
                 grid.save(out_dir / f"{save_name}_noise_{noise_idx}.png")
             logger.log_image("Train Images - Validation Prompts", grid, caption=prompt)
             output_images.append(grid)
@@ -636,7 +774,7 @@ def evaluate(
                               f"Edit on Original ({prompt})", f"Edit on Adversarial ({prompt})"],
                 )
                 save_name = "-".join(prompt[:30].split()) if prompt else "empty_prompt"
-                if cfg.save_images:
+                if cfg.save_images and writer:
                     grid.save(out_dir / f"val_{val_path.stem}_{save_name}_noise_{noise_idx}.png")
                 logger.log_image("Val Images - Validation Prompt", grid, caption=prompt)
     finally:
@@ -715,15 +853,17 @@ def sweep(
     cell.  ``image_paths`` default to ``list_sweep_images(cfg.images_dir)``.
 
     Runs on the card unless ``device="cpu"``.  ``data_parallel`` None means
-    False: the port uses one card and runs the cells one after another.
-    True groups the cells that share a prompt bank and a pool size (the same
-    grid point on different images) and runs each group of two or more as
-    one batch through :func:`immunize_batch` on the card, with each cell's
-    seed, so the artifacts are the serial ones; a group of one runs through
-    :func:`immunize`.  Data parallelism over several cards comes with the
-    multi-GPU slice.  A cell runs with ``eot_shards=1`` unless
-    ``train_overrides`` name it.  Returns one entry per cell (image,
-    n_prompts, n_noises, seed, output directory), evaluated or not."""
+    True when the machine has several ranks (JAX: several local devices),
+    else False, the cells one after another.  True groups the cells that
+    share a prompt bank and a pool size (the same grid point on different
+    images) and runs each group of two or more as one batch through
+    :func:`immunize_batch`, with each cell's seed, so the artifacts are the
+    serial ones: over the machine's ranks, the images split over them.  A
+    group of one runs through :func:`immunize`.  A cell runs with
+    ``eot_shards=1`` unless ``train_overrides`` name it.  The evaluations
+    split their cells over the ranks (``InferenceConfig.eval_shards`` None).
+    Returns one entry per cell (image, n_prompts, n_noises, seed, output
+    directory), evaluated or not."""
     if image_paths is None:
         from tml_image_editing_defense_torch.parallel.hosts import list_sweep_images
 
@@ -733,6 +873,8 @@ def sweep(
         cell["dir"].mkdir(parents=True, exist_ok=True)
     forced_eot = ({} if (train_overrides and "eot_shards" in train_overrides)
                   else {"eot_shards": 1})
+    if data_parallel is None:
+        data_parallel = local_world_size() > 1
 
     if data_parallel:
         groups: dict = {}
@@ -756,6 +898,8 @@ def sweep(
                            model=model)
             model = res.model
 
+    # the evaluations read the cells' files, which the first rank wrote
+    machine_barrier()
     results = []
     for cell in cells:
         cell_dir, image_path, n_noises = cell["dir"], cell["image"], cell["n_noises"]

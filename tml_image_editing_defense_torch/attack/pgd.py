@@ -343,33 +343,42 @@ def _rep_loss_fn(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
     return loss_fn
 
 
-def rep_grad_mean(rep_loss: Callable, x_adv: torch.Tensor, reps: int):
+def rep_grad_mean(rep_loss: Callable, x_adv: torch.Tensor, reps: int,
+                  rows: Optional[range] = None, reduce: Optional[Callable] = None):
     """The mean over ``reps`` of d loss_r / d x at ``x_adv``, one rep at a
-    time, each rep's graph freed before the next is built (the legacy loops
-    and the inpaint attack, whose reps each encode the image).
-    ``rep_loss(x, r) -> (loss, *outputs)``; returns (grad, mean loss, the last
-    rep's outputs detached)."""
+    time, each rep's graph freed before the next is built (the legacy loops,
+    the inpaint attack and the universal step, whose reps each encode the
+    image).  ``rep_loss(x, r) -> (loss, *outputs)``; returns (grad, mean
+    loss, the last rep's outputs detached).
+
+    The hooks of a sharded call (``parallel/eot.py``): ``rows`` is the block
+    of reps this call runs (default: all ``reps``), and ``reduce(tensors)``
+    sums the gradient and loss sums in place over the ranks that run the
+    other blocks; the sums are then divided by ``reps``."""
     gsum = torch.zeros_like(x_adv)
     loss_sum = torch.zeros((), dtype=torch.float32, device=x_adv.device)
+    outputs = []
     with torch.enable_grad():
-        for r in range(reps):
+        for r in range(reps) if rows is None else rows:
             x = x_adv.detach().requires_grad_(True)
             loss, *outputs = rep_loss(x, r)
             (g,) = torch.autograd.grad(loss, [x])
             gsum += g
             loss_sum += loss.detach()
+    if reduce is not None:
+        reduce([gsum, loss_sum])
     return gsum / reps, loss_sum / reps, [t.detach() for t in outputs]
 
 
 def eot_chunk_size(cfg: TrainConfig) -> int:
     """Reps per batch through the chain: ``eot_chunk`` under "scan", all
     of them under "vmap" (JAX pgd.py:316-328).  ``eot_chunk`` must divide
-    ``grad_reps``; "shard" (reps over cards) waits for the multi-GPU slice."""
+    ``grad_reps``.  "shard" is "scan" here, as in the JAX serial step (every
+    mode but "vmap" is the scan there): the reps spread over ranks with
+    ``cfg.eot_shards`` (``api.immunize``, ``parallel/eot.py``)."""
     if cfg.eot_mode == "vmap":
         return cfg.grad_reps
-    if cfg.eot_mode == "shard":
-        raise NotImplementedError('eot_mode="shard" comes with the multi-GPU slice of the port')
-    if cfg.eot_mode != "scan":
+    if cfg.eot_mode not in ("scan", "shard"):
         raise ValueError(f"unknown eot_mode {cfg.eot_mode!r}; have 'scan', 'vmap', 'shard'")
     chunk = max(int(cfg.eot_chunk), 1)
     if cfg.grad_reps % chunk:
@@ -412,7 +421,8 @@ def _one_image(aux: dict) -> dict:
 
 
 def make_batched_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
-                          cfg: TrainConfig):
+                          cfg: TrainConfig, rows: Optional[range] = None,
+                          reduce: Optional[Callable] = None):
     """EOT gradient of B images ``eot(x_advs [B, 3, H, W], batched, draws) ->
     (grad, aux)``, with ``batched`` from :func:`batch_attack_data` and
     ``draws`` one :class:`EOTDraws` per image: for each image the mean over
@@ -431,10 +441,21 @@ def make_batched_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: Den
     the next one is built.  ``aux`` holds per image ([B], on the device) the
     mean loss over reps and the last rep's rec/pert losses (JAX's
     ``a[-1]``), the prompt rows, and the last rep's output latents
-    [B, C, h, w], all detached."""
+    [B, C, h, w], all detached.
+
+    The hooks of the sharded steps (``parallel/eot.py``,
+    ``parallel/dp_eot.py``): ``rows`` is the block of the global rep stream
+    this call runs (rows of the same ``draws``), one rep at a time, as the
+    JAX sharded scan runs its block (eot.py:86-88; ``eot_chunk`` does not
+    apply there, nor here); ``reduce(tensors)`` sums the posterior
+    gradients and the loss sums in place over the ranks that run the other
+    blocks, before the one encoder backward (JAX's ``pmean`` of ``gdist``,
+    eot.py:90-94).  The sums are divided by ``grad_reps`` after it; the
+    aux's last rep is then the block's."""
     row_loss = _row_loss(model, sampler, plan, cfg)
     reps = cfg.grad_reps
-    chunk = eot_chunk_size(cfg)
+    chunk = eot_chunk_size(cfg) if rows is None else 1
+    block = range(reps) if rows is None else rows
     encode = _vae_checkpoint(model.vae.encode, cfg.remat_vae)
 
     def rows_of(batched: AttackData, draws: Sequence[EOTDraws], rows: range):
@@ -455,7 +476,7 @@ def make_batched_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: Den
             mean, logvar = encode(x)
             g_mean, g_logvar = torch.zeros_like(mean), torch.zeros_like(logvar)
             loss_sum = torch.zeros((b,), dtype=torch.float32, device=x.device)
-            for r0 in range(0, reps, chunk):
+            for r0 in range(block.start, block.stop, chunk):
                 m = mean.detach().requires_grad_(True)
                 lv = logvar.detach().requires_grad_(True)
                 eps, noise, cond, step_noise, target, target_latent, source = rows_of(
@@ -467,6 +488,8 @@ def make_batched_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: Den
                 g_mean += gm
                 g_logvar += gl
                 loss_sum += loss.detach().view(b, chunk).sum(1)
+            if reduce is not None:
+                reduce([g_mean, g_logvar, loss_sum])
             torch.autograd.backward([mean, logvar], [g_mean / reps, g_logvar / reps])
         last = lambda t: t.detach().view(b, chunk, *t.shape[1:])[:, -1]     # noqa: E731
         aux = {"avg_loss": loss_sum / reps, "rec_loss": last(rec), "pert_loss": last(pert),
@@ -496,14 +519,16 @@ def make_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan
 
 
 def make_batched_pgd_step(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
-                          cfg: TrainConfig) -> Callable:
+                          cfg: TrainConfig, eot: Optional[Callable] = None) -> Callable:
     """One outer PGD iteration of B images ``step(x_advs [B, 3, H, W],
     batched, draws) -> (x_advs', aux)`` (main.py:79-115; JAX
     parallel/sweep.py:85-109, the ``vmap`` of the one-image step, run here
-    as one batch): the gradient of :func:`make_batched_eot_grad`, then one
+    as one batch): the gradient of ``eot`` (default
+    :func:`make_batched_eot_grad`; the sharded steps pass theirs), then one
     update of every image (K4 for L2 at [B, 3, H, W] with per-image norms,
     K5 for L-inf)."""
-    eot = make_batched_eot_grad(model, sampler, plan, cfg)
+    if eot is None:
+        eot = make_batched_eot_grad(model, sampler, plan, cfg)
     update = select_perturbation_update(cfg)
 
     def step(x_advs: torch.Tensor, batched: AttackData, draws: Sequence[EOTDraws]):
@@ -518,14 +543,11 @@ def make_batched_pgd_step(model: DiffusionModel, sampler: BaseSampler, plan: Den
     return step
 
 
-def make_pgd_step(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
-                  cfg: TrainConfig, decode_vis: bool = True) -> Callable:
-    """One outer PGD iteration of one image ``step(x_adv, data, draws) ->
-    (x_adv', aux)``: :func:`make_batched_pgd_step` on a batch of one.  With
-    ``decode_vis`` the aux also carries ``output_image``, the last rep's
-    output decoded for the vis grid."""
-    step = make_batched_pgd_step(model, sampler, plan, cfg)
-
+def one_image_step(step: Callable, model: DiffusionModel, decode_vis: bool = True) -> Callable:
+    """A batched step (``step(x_advs, batched, draws)``) as a one-image step
+    ``one(x_adv, data, draws) -> (x_adv', aux)`` on a batch of one, the
+    losses in ``aux`` scalars; with ``decode_vis`` the aux also carries
+    ``output_image``, the last rep's output decoded for the vis grid."""
     def one(x_adv: torch.Tensor, data: AttackData, draws: EOTDraws):
         x_new, aux = step(x_adv, batch_attack_data([data]), [draws])
         aux = _one_image(aux)
@@ -535,6 +557,14 @@ def make_pgd_step(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan
         return x_new, aux
 
     return one
+
+
+def make_pgd_step(model: DiffusionModel, sampler: BaseSampler, plan: DenoisePlan,
+                  cfg: TrainConfig, decode_vis: bool = True) -> Callable:
+    """One outer PGD iteration of one image ``step(x_adv, data, draws) ->
+    (x_adv', aux)``: :func:`make_batched_pgd_step` on a batch of one
+    (:func:`one_image_step`)."""
+    return one_image_step(make_batched_pgd_step(model, sampler, plan, cfg), model, decode_vis)
 
 
 def run_pgd(

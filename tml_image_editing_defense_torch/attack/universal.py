@@ -41,6 +41,7 @@ from tml_image_editing_defense_torch.attack.losses import lp_distance
 from tml_image_editing_defense_torch.attack.pgd import rep_grad_mean
 from tml_image_editing_defense_torch.models.model_zoo import DiffusionModel, PromptBank
 from tml_image_editing_defense_torch.models.tiny_vae import AutoencoderTiny
+from tml_image_editing_defense_torch.parallel.mesh import REPS_AXIS
 
 
 @dataclass
@@ -231,7 +232,8 @@ def adam_update(grad: torch.Tensor, state: AdamState, lr: float, b1: float = 0.9
 
 
 def make_universal_step(model: DiffusionModel, cfg: UniversalConfig, bank: PromptBank,
-                        preview: Optional[AutoencoderTiny] = None) -> Callable:
+                        preview: Optional[AutoencoderTiny] = None,
+                        mean_grad: Optional[Callable] = None) -> Callable:
     """One optimization step over one source image [1, 3, H, W]:
     ``step(pert, source, draws) -> (pert', avg_loss)``; with
     ``cfg.optimizer="adam"``, ``step(pert, opt_state, source, draws) ->
@@ -240,15 +242,18 @@ def make_universal_step(model: DiffusionModel, cfg: UniversalConfig, bank: Promp
     The gradient is the mean over ``cfg.grad_reps`` reps, one rep's graph at
     a time.  ``preview``: the TAESD autoencoder for the loss-side decode, as
     the reference decodes (old/train_noise.py:82, 151); without it, the full
-    VAE decode."""
+    VAE decode.  ``mean_grad(pert, source, draws) -> (grad, avg_loss)``
+    replaces that mean (JAX universal.py:185-205); the reps over ranks pass
+    theirs (``parallel/eot.py::make_sharded_universal_step``)."""
     if cfg.optimizer is not None and cfg.optimizer != "adam":
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}; have: adam")
-    rep_loss = _universal_rep_loss(model, cfg, bank, preview)
+    if mean_grad is None:
+        rep_loss = _universal_rep_loss(model, cfg, bank, preview)
 
-    def mean_grad(pert, source, draws):
-        grad, avg_loss, _ = rep_grad_mean(lambda x, r: (rep_loss(x, source, draws, r),),
-                                          pert, cfg.grad_reps)
-        return grad, avg_loss
+        def mean_grad(pert, source, draws):
+            grad, avg_loss, _ = rep_grad_mean(lambda x, r: (rep_loss(x, source, draws, r),),
+                                              pert, cfg.grad_reps)
+            return grad, avg_loss
 
     def project(pert, source):
         pert = torch.clamp(pert, -cfg.eps, cfg.eps)           # old/train_noise.py:180
@@ -323,6 +328,7 @@ def train_universal_perturbation(
     vis_every: Optional[int] = None,
     vis_fn: Optional[Callable[[int, np.ndarray], None]] = None,
     draw_sampler=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[float]]:
     """The dataset loop (old/train_noise.py:115-185): shuffled single-image
     steps until ``cfg.max_steps`` or ``cfg.epochs`` run out.
@@ -334,10 +340,18 @@ def train_universal_perturbation(
     validation edit of the step's image, handed to ``vis_fn(step, collage)``
     as an HWC uint8 [perturbed | source | validation] collage (the
     reference's ``validate_every_k_steps``, old/train_noise.py:196-214).
+    ``mesh``: a mesh of ranks whose ``reps`` axis the EOT reps spread over
+    (``parallel/eot.py::make_sharded_universal_step``; JAX :300-330); every
+    rank runs this loop alike, with the same draws.
     Returns the perturbation [1, 3, H, W] and the loss of every step."""
     prompts = [(cfg.default_prompt + " " + e).strip() for e in cfg.edit_prompts]
     bank = model.embed_prompt_bank(prompts)
-    step = make_universal_step(model, cfg, bank, preview=preview)
+    if mesh is not None and mesh.size(REPS_AXIS) > 1:
+        from tml_image_editing_defense_torch.parallel.eot import make_sharded_universal_step
+
+        step = make_sharded_universal_step(model, cfg, bank, mesh, preview=preview)
+    else:
+        step = make_universal_step(model, cfg, bank, preview=preview)
     opt_init = getattr(step, "init", None)
     validate = None
     if vis_every is not None and vis_fn is not None:

@@ -11,10 +11,10 @@ Flags are made from the ``TrainConfig``, ``InferenceConfig`` and
     python -m tml_image_editing_defense_torch.cli sweep --images-dir ./images \\
         --n-prompts-grid 1 10 all --n-noises-grid 1 none ...
 
-``immunize-batch`` immunizes the images as one batch on the card (each
-image's artifacts in ``--output-path``/<stem>); ``sweep`` runs the grid of
-the reference's ``run_all.py``, cell after cell ("all" or "none" in a grid
-is None: every prompt, fresh noise); its ``--model-family`` and
+``immunize-batch`` immunizes the images as one batch (each image's
+artifacts in ``--output-path``/<stem>); ``sweep`` runs the grid of the
+reference's ``run_all.py`` ("all" or "none" in a grid is None: every
+prompt, fresh noise); its ``--model-family`` and
 ``--image-size`` set the cells' model (on the CPU: ``--device cpu
 --model-family tiny --image-size 32``).
 
@@ -28,6 +28,17 @@ Real weights: ``--params-path W.msgpack`` (a bundle of
 ``prepare_real_weights``, of either package) and ``--tokenizer-paths DIR``
 (one CLIP tokenizer directory; the second SDXL encoder keeps the hash
 tokenizer).
+
+Several GPUs: launch one rank per card under torchrun, e.g. ``torchrun
+--nproc-per-node N -m tml_image_editing_defense_torch.cli immunize
+--eot-shards N ...``; with ``WORLD_SIZE`` above 1 the process group starts
+from torchrun's environment (NCCL on the cards).  ``immunize`` spreads the
+EOT reps over the ranks (``--eot-shards``, by default the largest divisor
+of ``--grad-reps`` that divides the ranks), ``immunize-batch`` and ``sweep``
+the images (and with ``--eot-shards`` each image's reps), ``evaluate`` its
+cells (``--eval-shards``, by default every rank).  The first rank writes the
+files.  Several machines sweep disjoint image lists with
+``tml_image_editing_defense_torch.launch_host``.
 """
 
 from __future__ import annotations
@@ -87,7 +98,7 @@ def _parse_grid(values):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="tml-immunize-torch",
-        description="PhotoGuard-style image immunization on one NVIDIA GPU (PyTorch/CUDA)",
+        description="PhotoGuard-style image immunization on NVIDIA GPUs (PyTorch/CUDA)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -106,7 +117,7 @@ def main(argv=None) -> int:
     p_eval.add_argument("--prompts", nargs="*", default=None)
 
     p_batch = sub.add_parser("immunize-batch",
-                             help="immunize many images as one batch on the card")
+                             help="immunize many images as one batch")
     _add_dataclass_args(p_batch, TrainConfig)
     p_batch.add_argument("--images", nargs="+", type=Path, required=True)
     p_batch.add_argument("--prompts", nargs="*", default=None)
@@ -126,13 +137,17 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     from tml_image_editing_defense_torch import api
+    from tml_image_editing_defense_torch.parallel.mesh import init_if_launched, is_writer
+
+    init_if_launched(args.device)
+    say = print if is_writer() else (lambda *a, **k: None)
 
     if args.command == "immunize":
         cfg = _build_cfg(TrainConfig, args)
         if args.prompts:
             cfg.prompts = list(args.prompts)
         api.immunize(cfg, device=args.device, resume_from=args.resume_from)
-        print(f"adversarial image -> {Path(cfg.output_path) / 'adversarial_image.png'}")
+        say(f"adversarial image -> {Path(cfg.output_path) / 'adversarial_image.png'}")
         return 0
 
     if args.command == "immunize-batch":
@@ -140,7 +155,7 @@ def main(argv=None) -> int:
         if args.prompts:
             cfg.prompts = list(args.prompts)
         results = api.immunize_batch(cfg, args.images, device=args.device)
-        print(f"{len(results)} images immunized -> {cfg.output_path}")
+        say(f"{len(results)} images immunized -> {cfg.output_path}")
         return 0
 
     if args.command == "sweep":
@@ -152,7 +167,7 @@ def main(argv=None) -> int:
         overrides = {k: getattr(args, k) for k in ("model_family", "image_size")
                      if getattr(args, k) is not None}
         results = api.sweep(cfg, device=args.device, train_overrides=overrides or None)
-        print(f"{len(results)} sweep cells -> {cfg.output_root}")
+        say(f"{len(results)} sweep cells -> {cfg.output_root}")
         return 0
 
     from PIL import Image
@@ -164,7 +179,7 @@ def main(argv=None) -> int:
     noises = load_noise_pool(args.noise_pool) if args.noise_pool else None
     prompts = list(args.prompts) if args.prompts else INFERENCE_PROMPTS
     api.evaluate(cfg, adv, prompts, device=args.device, noises=noises)
-    print(f"grids -> {cfg.output_path}")
+    say(f"grids -> {cfg.output_path}")
     return 0
 
 

@@ -136,8 +136,8 @@ class TrainConfig:
     BLIP-2 caption (``caption_model_path``).  ``params_path`` (a params
     bundle from ``prepare_real_weights``, of either package) and
     ``tokenizer_paths`` (CLIP tokenizer directories) give real weights.
-    ``api.immunize`` refuses the knobs of a later slice: ``eot_shards``
-    above 1 and ``eot_mode="shard"`` (multi-GPU)."""
+    ``eot_shards`` spreads the EOT reps over the ranks of a process group
+    (``api.immunize``, ``parallel/eot.py``)."""
 
     # --- paths / bookkeeping ---
     source_image_path: Path = Path("data/images/japan.jpg")
@@ -205,14 +205,18 @@ class TrainConfig:
     dtype: str = "float32"
     #: How the EOT reps run (JAX configs.py:216-219): "scan" (chunks of
     #: ``eot_chunk`` reps one after another), "vmap" (all reps in one
-    #: batch), "shard" (reps over cards: the multi-GPU slice, refused).
+    #: batch); "shard" runs as "scan", as in the JAX serial step: the reps
+    #: go over ranks with ``eot_shards``.
     eot_mode: str = "scan"
     #: Reps batched through the chain together under "scan" (JAX
     #: configs.py:220-224): the UNet and VAE batches grow from 2 (CFG) to
     #: 2 x chunk, the activations by x chunk.  Must divide grad_reps.
     eot_chunk: int = 1
-    #: Cards the reps spread over (JAX configs.py:225-231): None or 1 is one
-    #: card; more comes with the multi-GPU slice and is refused.
+    #: Ranks the reps spread over (JAX configs.py:225-231), one per card:
+    #: None takes the largest divisor of grad_reps that divides the
+    #: machine's ranks (1 without a process group), 1 the serial step, N
+    #: must divide grad_reps (``api._reps_sharding``).  In ``immunize_batch``
+    #: above 1 it adds a ``reps`` axis beside the images' ``data`` axis.
     eot_shards: Optional[int] = None
     #: What the backward recomputes inside each denoising step (JAX
     #: configs.py:232-240, attack/forward.py::apply_remat): "none", "dots"
@@ -265,7 +269,8 @@ class TrainConfig:
 class InferenceConfig:
     """Evaluation configuration (reference ``configs.py:162-193``).
 
-    ``eval_shards`` takes None or 1 (one card).  ``add_image_caption_to_prompts``
+    ``eval_shards`` splits the (prompt x noise) cells over the ranks of a
+    process group.  ``add_image_caption_to_prompts``
     prefixes the prompts with the source's BLIP-2 caption
     (``caption_model_path``).  ``params_path`` and ``tokenizer_paths`` give
     real weights, as in :class:`TrainConfig`."""
@@ -305,7 +310,9 @@ class InferenceConfig:
     # --- knobs without a reference equivalent ---
     dtype: str = "float32"
     save_images: bool = True
-    #: Cards the (prompt x noise) cells are spread over: None or 1 (one card).
+    #: Ranks the (prompt x noise) cells are split over (JAX
+    #: configs.py:341-345): None is every rank of the machine (1 without a
+    #: process group), 1 no split (``api._eval_shards``).
     eval_shards: Optional[int] = None
     params_path: Optional[Path] = None
     tokenizer_paths: Optional[List[Optional[str]]] = None

@@ -1,4 +1,4 @@
-"""Batched immunization on one card (port of ``parallel/``, A.14a): the
-sweep's image list (``hosts``) and the batched PGD step (``sweep``).  The
-multi-card layouts of the JAX package (reps and images over devices, host
-sharding) are not ported yet."""
+"""Immunization over ranks and batches (port of ``parallel/``): the
+mesh of ranks (``mesh``), EOT reps over ranks (``eot``), images x reps
+(``dp_eot``), the sweep's image list and its split over machines
+(``hosts``) and the batched step (``sweep``)."""

@@ -17,6 +17,12 @@ bundle ``--params`` (``prepare_real_weights``) and the TAESD directory
 Writes ``perturbation.npy`` (NHWC float32 [1, H, W, 3], the JAX package's
 layout), ``perturbed_example.png`` and, with ``--vis-every k``,
 ``validation_<step>.png`` every k steps.
+
+``--eot-shards N`` spreads each step's EOT reps over N ranks
+(``parallel/eot.py::make_sharded_universal_step``); launch N ranks, e.g.
+``torchrun --nproc-per-node N -m tml_image_editing_defense_torch.universal_attack
+--eot-shards N ...``: the process group starts from torchrun's environment,
+every rank trains the same perturbation and the first writes the files.
 """
 
 from __future__ import annotations
@@ -59,7 +65,8 @@ def _parser() -> argparse.ArgumentParser:
                          "(old/train_noise.py:96); default: the normalized-gradient rule")
     ap.add_argument("--lr", type=float, default=1e-2)
     ap.add_argument("--eot-shards", type=int, default=1,
-                    help="shard the EOT reps over this many devices (multi-GPU slice)")
+                    help="spread each step's EOT reps over this many ranks (must divide "
+                         "--grad-reps and the ranks launched)")
     ap.add_argument("--remat-policy", type=str, default="none",
                     choices=["none", "full", "dots", "conv_dots"],
                     help="checkpoint each rep's stages; 'full' for SDXL at 1024²")
@@ -82,9 +89,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> UniversalRun:
     args = _parser().parse_args(argv)
-    if args.eot_shards > 1:
-        raise NotImplementedError("--eot-shards above 1 comes with the multi-GPU slice of the "
-                                  "port")
 
     from tml_image_editing_defense_torch.api import _train_attn_chunk
     from tml_image_editing_defense_torch.attack.universal import (
@@ -98,8 +102,17 @@ def main(argv=None) -> UniversalRun:
         build_tiny_autoencoder,
         load_taesd_checkpoint,
     )
+    from tml_image_editing_defense_torch.parallel.mesh import (
+        REPS_AXIS,
+        init_if_launched,
+        is_writer,
+        make_mesh,
+    )
     from tml_image_editing_defense_torch.utils.device import resolve_device
 
+    init_if_launched(args.device)
+    mesh = make_mesh({REPS_AXIS: args.eot_shards}) if args.eot_shards > 1 else None
+    writer = is_writer()
     device = resolve_device(args.device)
     if args.family not in _FAMILIES:
         raise ValueError(f"unknown family {args.family!r}; have {sorted(_FAMILIES)}")
@@ -145,25 +158,30 @@ def main(argv=None) -> UniversalRun:
     images = [torch.from_numpy(ds[i][0][None]).to(device, model.dtype) for i in range(len(ds))]
 
     def log_fn(step, loss):
-        print(f"step {step}: loss {loss:.4f}", flush=True)
+        if writer:
+            print(f"step {step}: loss {loss:.4f}", flush=True)
 
-    args.output.mkdir(parents=True, exist_ok=True)
+    if writer:
+        args.output.mkdir(parents=True, exist_ok=True)
 
     def vis_fn(step, collage):
-        from PIL import Image
+        # every rank validates (the draws stay in step); the first saves
+        if writer:
+            from PIL import Image
 
-        Image.fromarray(collage).save(args.output / f"validation_{step:05d}.png")
+            Image.fromarray(collage).save(args.output / f"validation_{step:05d}.png")
 
     pert, losses = train_universal_perturbation(
         model, images, cfg, generator=torch.Generator(device=device).manual_seed(args.seed + 2),
         log_fn=log_fn, preview=preview, vis_every=args.vis_every,
-        vis_fn=vis_fn if args.vis_every else None)
+        vis_fn=vis_fn if args.vis_every else None, mesh=mesh)
 
-    host = pert.detach().to("cpu", torch.float32)
-    np.save(args.output / "perturbation.npy", host.permute(0, 2, 3, 1).contiguous().numpy())
-    to_pil((images[0].to("cpu", torch.float32) + host).clamp(-1.0, 1.0)).save(
-        args.output / "perturbed_example.png")
-    print(f"final loss {losses[-1]:.4f}; artifacts in {args.output}", flush=True)
+    if writer:
+        host = pert.detach().to("cpu", torch.float32)
+        np.save(args.output / "perturbation.npy", host.permute(0, 2, 3, 1).contiguous().numpy())
+        to_pil((images[0].to("cpu", torch.float32) + host).clamp(-1.0, 1.0)).save(
+            args.output / "perturbed_example.png")
+        print(f"final loss {losses[-1]:.4f}; artifacts in {args.output}", flush=True)
     return UniversalRun(pert, losses, model, preview, cfg, images)
 
 

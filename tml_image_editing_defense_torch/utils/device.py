@@ -15,7 +15,9 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def resolve_device(device: Optional[Union[str, torch.device]] = "cuda") -> torch.device:
     """The device to run on; ``None`` means the card.  Raises when CUDA is
-    asked for and absent."""
+    asked for and absent.  Among several ranks, ``"cuda"`` is the rank's
+    own card, ``cuda:{LOCAL_RANK}``: ``parallel.mesh.init_distributed``
+    makes it the current device."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
