@@ -15,7 +15,7 @@ Phases, each fatal on failure:
    main paths' shapes -- flash attention K1 (forward), K2 (dK, dV), K3 (dQ)
    at [2, 4096, 8, 40] (UNet 64x64 level) and [1, 4096, 1, 512] (VAE
    mid-block) in f32 and bf16, at [8, 4096, 1, 512] (the encoder
-   attack's batched VAE mid-block) in f32, at the evaluation's
+   attack's batched VAE mid-block) in f32 and bf16, at the evaluation's
    [8, 4096, 8, 40] and [4, 4096, 1, 512], at the SDXL evaluation's
    [4, 4096, 10, 64] and [2, 16384, 1, 512] and at the SDXL universal
    attack's [2, 4096, 10, 64] and [1, 16384, 1, 512] in f32 and bf16 (the
@@ -99,7 +99,8 @@ Phases, each fatal on failure:
    foreground share (neither none nor all); then ``api.immunize`` with
    ``use_segmentation_mask=True`` and ``segmentation_model_path`` that
    directory on the diffusion path's model at the ``TrainConfig`` defaults
-   for 3 iterations: the mask it used equal, bit for bit, to ISNet's on the
+   for 2 iterations (cut from 3 for path bn's time): the mask it used
+   equal, bit for bit, to ISNet's on the
    cropped source and unlike the heuristic's, K4's masked entry launched
    once an iteration and its unmasked entry never, x_adv equal to the source outside the mask after every
    iteration and moved inside it, the diffusion path's checks and launch
@@ -129,8 +130,9 @@ Phases, each fatal on failure:
    draws (x_adv within 1e-3, losses within 1e-4 relative); one batched
    iteration under ``torch.profiler``;
 9d. the sweep (s): ``cli.main(["sweep", ...])`` at the ``SweepConfig``
-   defaults over 2 synthetic images, grid 1 x 1, 1 iteration a cell, seed
-   0: the cells one after another on one model, each evaluated (LCM, 4
+   defaults over 1 synthetic image (2 before path bn), grid 1 x 1, 1
+   iteration a cell, seed 0: the cells one after another on one model,
+   each evaluated (LCM, 4
    steps at strength 0.6, the ``INFERENCE_PROMPTS``); each cell's
    artifacts and grids, one model built, K1-K4 launched as the code
    implies, seconds per cell;
@@ -153,9 +155,9 @@ Phases, each fatal on failure:
    1024x1024: one (clean, adv) pair, Euler 10 steps at strength 0.6, K1
    against plain attention within 1e-3;
 12. SDXL evaluate: ``cli.main(["evaluate", "--use-sdxl", "true",
-   "--image-size", "1024", "--n-steps", "20", ...])`` at the
-   ``InferenceConfig`` defaults otherwise (Euler, SDXL without LCM: 20
-   steps at strength 0.6, 12 UNet calls, guidance 7.5, f32),
+   "--image-size", "1024", "--n-steps", "10", ...])`` at the
+   ``InferenceConfig`` defaults otherwise (Euler, SDXL without LCM: 10
+   steps at strength 0.6, 6 UNet calls, guidance 7.5, f32),
    one prompt, n_noise 1, no validation images: one cell, its edits one
    after another (batch_edits is off at 1024x1024), on a synthetic
    1024x1024 source and an adversarial PNG made from it with a seeded
@@ -199,7 +201,20 @@ Phases, each fatal on failure:
    iteration under ``torch.profiler`` (device busy time, idle share); then
    the kernels against plain attention on one f32 iteration of 1 rep
    at 1024x1024 with the same remat (within 1e-3 and 1e-4);
-16. a JSON line naming every kernel with its launches on every path, error
+16. the port's bench (bn): ``bench.encoder_leg``, ``diffusion_leg`` and
+   ``sdxl_leg`` (``tml_image_editing_defense_torch/bench.py``) through
+   ``bench.run_legs`` in bf16, cut to 10 encoder steps (batch 1, then 8)
+   and one timed call or step a leg: the record line with ``value``,
+   ``mfu``, ``encoder_mfu`` and ``sdxl_mfu`` finite, no leg failed,
+   skipped or hung (each leg holds its iterate in its ball and [-1, 1] and
+   its launches to the code's), under HELD_LIMIT_GB allocated before the
+   SDXL build, and the launches the code implies by shape (K1-K3 in bf16 at
+   [2, 4096, 8, 40], [8, 4096, 1, 512] and [1, 4096, 1, 512], K4 at
+   [1, 3, 512, 512], K5 at [1, 3, 512, 512] and [8, 3, 512, 512]); then on
+   a fresh bf16 SD-1.5 a diffusion-leg step under ``torch.profiler`` and
+   one bf16 iteration of 1 rep through K1-K4 against plain attention and
+   the plain update, within twice the noise floor measured beside it;
+17. a JSON line naming every kernel with its launches on every path, error
    and times, then the card's name and power limit, then the result line.
 
 ``--report PATH`` also writes the full report there as JSON.
@@ -231,7 +246,9 @@ H100_BYTES_PER_S = 3.35e12      # HBM3
 UNET_SHAPE, VAE_SHAPE, IMAGE_SHAPE = (2, 4096, 8, 40), (1, 4096, 1, 512), (1, 3, 512, 512)
 ENC_BATCH = 8
 ENC_ATTN_SHAPE, ENC_IMAGE_SHAPE = (ENC_BATCH, 4096, 1, 512), (ENC_BATCH, 3, 512, 512)
-ITERATIONS = 3          # of the diffusion path (d, its resume and m)
+ITERATIONS = 3          # of the diffusion path (d and its resume)
+#: of the masked path (m), cut from 3 to make room for path bn
+MASKED_ITERATIONS = 2
 #: of the inpaint and SDXL 512x512 paths (i, xl), cut from 3 to make room
 #: for path dp under the time limit
 SHORT_ITERATIONS = 2
@@ -241,10 +258,10 @@ ENC_STEPS = 5           # of the encoder attack
 EVAL_BATCH = 2
 EVAL_UNET_SHAPE, EVAL_VAE_SHAPE = (4 * EVAL_BATCH, 4096, 8, 40), (2 * EVAL_BATCH, 4096, 1, 512)
 EVAL_PROMPTS = 2        # the first two of INFERENCE_PROMPTS
-#: the SDXL evaluation's steps (Euler at strength 0.6: 12 UNet calls an
-#: edit), cut from the InferenceConfig default of 100 (60 calls) for path
-#: dp's time
-SDXL_EVAL_STEPS = 20
+#: the SDXL evaluation's steps (Euler at strength 0.6: 6 UNet calls an
+#: edit), cut from the InferenceConfig default of 100 (60 calls) to 20 for
+#: path dp's time, then to 10 for path bn's
+SDXL_EVAL_STEPS = 10
 #: SDXL is trained at 512x512 (the reference's dataset transform) and
 #: evaluated at its native 1024x1024, one cell at a time; there K1 runs the
 #: UNet's 64x64 level (2 images x CFG, 10 heads of 64) and the VAE
@@ -282,7 +299,8 @@ B_IMAGE_SHAPE = (BATCH_IMAGES, 3, 512, 512)
 B1K_IMAGES = 2
 B1K_IMAGE_SHAPE = (B1K_IMAGES, 3, 1024, 1024)
 #: the sweep (s): SWEEP_IMAGES images, grid 1 x 1, one iteration per cell
-SWEEP_IMAGES = 2
+#: (cut from 2 images to make room for path bn)
+SWEEP_IMAGES = 1
 LINF = dict(step_size=0.006, eps=0.1, min_value=-1.0, max_value=1.0)
 L2 = dict(step_size=7.5, eps=32.0, min_value=-1.0, max_value=1.0)     # the TrainConfig defaults
 #: a write this large between two timed calls leaves none of their operands
@@ -1386,13 +1404,14 @@ def check_loaded_weights(model, ref, lora: dict, targets: dict) -> dict:
     return {"fused_err_over_tol_max": worst, "fused_delta_max": moved}
 
 
-def bf16_iteration_gate(model, cfg, inputs, layers, bound: float) -> dict:
+def bf16_iteration_gate(model, cfg, inputs, layers, bound: Optional[float]) -> dict:
     """One bf16 PGD iteration on the same draws through K1-K4 and through
     plain attention with the plain update: the updates (x_adv - x0) may
     differ by ``bound`` in L2 relative to the plain update's.  The noise
     floor beside it: plain again (cuDNN's nondeterminism), and plain with
     the posterior and step noises moved by bf16's unit roundoff (2^-8,
-    times a seeded standard normal)."""
+    times a seeded standard normal).  ``bound=None``: twice that floor as
+    measured here (the rule that set xl1k's ``XL1K_BF16_GATE``)."""
     import dataclasses
 
     import torch
@@ -1425,6 +1444,8 @@ def bf16_iteration_gate(model, cfg, inputs, layers, bound: float) -> dict:
                                            step_noise=moved(draws.step_noise)))
     upd = torch.linalg.vector_norm(x_p - x0).item()
     rel = lambda a: torch.linalg.vector_norm(a - x_p).item() / upd           # noqa: E731
+    floor = max(rel(x_p2), rel(x_m))
+    bound = 2 * floor if bound is None else bound
     out = {"kernels_vs_plain": rel(x_k), "plain_vs_plain": rel(x_p2),
            "floor_draws_at_bf16_roundoff": rel(x_m), "bound": bound,
            "update_l2": upd, "avg_loss_rel_diff": abs(l_k - l_p) / abs(l_p),
@@ -1613,6 +1634,7 @@ def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, tmp: 
     import torch
     from PIL import Image
 
+    from tml_image_editing_defense_torch.bench import unet_long_attentions
     from tml_image_editing_defense_torch.configs import INFERENCE_PROMPTS, InferenceConfig
     from tml_image_editing_defense_torch.core.samplers import PLMSSampler
     from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
@@ -1656,41 +1678,6 @@ def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, tmp: 
             "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
             "allocated_before_gb": before / 1e9,
             "launches": launches, "expected_launches": expected, "k1_launches_at_shape": at_shape}
-
-
-def unet_long_attentions(unet_cfg, image_size: int) -> int:
-    """Self-attentions of one UNet call that go to K1 at ``image_size``: at
-    every level whose token count reaches the flash path's floor
-    (``layers.scaled_attention`` with the builds' chunk of 512), a level
-    with attention has ``layers_per_block`` transformers down and one more
-    up, each ``transformer_layers_per_block`` layers deep; the mid block
-    adds the last level's."""
-    from tml_image_editing_defense_torch.models import layers
-
-    floor = max(2 * 512, layers.MIN_CHUNKED_SEQ)
-    side, levels = image_size // 8, len(unet_cfg.block_out_channels)
-    count = sum((2 * unet_cfg.layers_per_block + 1) * unet_cfg.transformer_layers_per_block[i]
-                for i in range(levels)
-                if unet_cfg.cross_attention_blocks[i] and (side >> i) ** 2 >= floor)
-    if (side >> (levels - 1)) ** 2 >= floor:
-        count += unet_cfg.transformer_layers_per_block[-1]
-    return count
-
-
-def pgd_launches(unet_cfg, cfg, unet_steps: int) -> dict:
-    """K1-K4 launches of one PGD iteration of ``cfg``'s diffusion path: the
-    shared encode, and per rep ``unet_steps`` UNet calls with
-    :func:`unet_long_attentions` long self-attentions each and one decode,
-    all forward and backward, and one update.  Under a remat policy every
-    UNet forward runs again in the backward (the checkpoint's recompute),
-    under ``remat_vae`` the encode's and each decode's too."""
-    unet = unet_steps * unet_long_attentions(unet_cfg, cfg.image_size)
-    unet_fwd = 1 if cfg.remat_policy == "none" else 2
-    vae_fwd = 2 if cfg.remat_vae else 1
-    fwd = cfg.grad_reps * (unet_fwd * unet + vae_fwd) + vae_fwd
-    bwd = cfg.grad_reps * (unet + 1) + 1
-    return {"tid_flash_fwd": fwd, "tid_flash_bwd_kv": bwd, "tid_flash_bwd_q": bwd,
-            "tid_pgd_l2_update": 1}
 
 
 def path_flops(family: str, cfg, unet_steps: int, n_iterations: int, seconds: float,
@@ -1824,6 +1811,7 @@ def sdxl_evaluate_path(cli, kernels, images: dict, tmp: Path) -> dict:
     import torch
     from PIL import Image
 
+    from tml_image_editing_defense_torch.bench import unet_long_attentions
     from tml_image_editing_defense_torch.configs import INFERENCE_PROMPTS, InferenceConfig
     from tml_image_editing_defense_torch.core.samplers import EulerSampler
     from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
@@ -1873,6 +1861,8 @@ def universal_launches(unet_cfg, size: int, reps: int, steps: int, validations: 
     forward and backward (the TAESD decode has no attention); under a remat
     policy every forward runs again in the backward.  A validation edit
     runs the encode, the UNet and the full VAE decode, forward only."""
+    from tml_image_editing_defense_torch.bench import unet_long_attentions
+
     unet_n, fwd = unet_long_attentions(unet_cfg, size), 1 if remat == "none" else 2
     unet = {"tid_flash_fwd": fwd * steps * reps * unet_n + validations * unet_n,
             "tid_flash_bwd_kv": steps * reps * unet_n, "tid_flash_bwd_q": steps * reps * unet_n}
@@ -2358,6 +2348,123 @@ def sweep_path(cli, api, kernels, images_dir: Path, out_root: Path, per_cell: di
             "expected_launches": expected, "per_cell_launches": per_cell}
 
 
+#: path bn: the port's bench (``tml_image_editing_defense_torch/bench.py``)
+#: in this process through its harness, at full width in bf16, cut from the
+#: bench's 200 encoder steps and 3 timed calls or steps a leg
+BN_ENC_STEPS, BN_MEAS = 10, 1
+#: its deadline from the path's start: above the legs' estimates (0, 120
+#: and 300 s), so none is skipped
+BN_DEADLINE_S = 900.0
+
+
+def bench_path(bench, kernels, layers, card: str, unet_steps: int) -> dict:
+    """The port's bench legs (encoder, diffusion, SDXL) through
+    ``bench.run_legs`` with BN_ENC_STEPS encoder steps and BN_MEAS timed
+    calls or steps a leg; every count set to 0 just before and read just
+    after.  The record line must carry ``value``, ``mfu``, ``encoder_mfu``
+    and ``sdxl_mfu``, finite, the shares in (0, 1], and no error, skip or
+    hang: each leg raises, so records an error, where its iterate leaves its
+    ball or [-1, 1], a loss is not finite or its launches differ from the
+    code's.  The bytes allocated before the SDXL build (read where the leg
+    frees the card) must be under HELD_LIMIT_GB, and the launches those
+    below.  Then on a fresh bf16 SD-1.5 with the diffusion leg's inputs:
+    one step under torch.profiler, and the bf16 gate on one iteration of 1
+    rep against its measured noise floor."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from tml_image_editing_defense_torch.attack.pgd import make_pgd_step
+    from tml_image_editing_defense_torch.bench import unet_long_attentions
+    from tml_image_editing_defense_torch.models.model_zoo import build_model
+    from tml_image_editing_defense_torch.models.unet import SD15_UNET
+
+    lines, held, peaks = [], [], []
+    free = bench.free_all_device_memory
+
+    def watched_free(device):
+        # between the SD-1.5 legs and the SDXL leg: their peak, then SDXL's
+        held.append(free(device))
+        peaks.append((torch.cuda.max_memory_allocated() - before) / 1e9)
+        torch.cuda.reset_peak_memory_stats()
+        return held[-1]
+
+    legs = [("encoder", 0.0, functools.partial(bench.encoder_leg, n_enc_steps=BN_ENC_STEPS,
+                                               n_meas=BN_MEAS)),
+            ("diffusion", 120.0, functools.partial(bench.diffusion_leg, n_meas=BN_MEAS)),
+            ("sdxl", 300.0, functools.partial(bench.sdxl_leg, n_meas=BN_MEAS))]
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bench.free_all_device_memory = watched_free
+    try:
+        for kern in kernels:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        bench.run_legs(legs, {"_dtype": torch.bfloat16, "device": card},
+                       time.time() + BN_DEADLINE_S, emit=lambda s: lines.append(json.loads(s)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {kern.symbol: kern.launches for kern in kernels}
+    finally:
+        bench.free_all_device_memory = free
+    peaks.append((torch.cuda.max_memory_allocated() - before) / 1e9)
+    last = lines[-1]
+    require(len(lines) == 3 and not [k for k in last if k.endswith("_error")
+                                     or k in ("skipped_legs", "hung_legs")], ("bench", lines))
+    for k in ("value", "mfu", "encoder_mfu", "sdxl_mfu", "diffusion_pgd_s_per_step",
+              "sdxl_pgd_s_per_step"):
+        v = last.get(k)
+        require(isinstance(v, (int, float)) and math.isfinite(v) and v > 0, ("bench", k, v))
+    require(all(last[k] <= 1.0 for k in ("mfu", "encoder_mfu", "sdxl_mfu")), ("bench", last))
+    require(len(held) == 1 and held[0] <= HELD_LIMIT_GB * 1e9,
+            f"{held} bytes allocated before the SDXL build")
+    # K1-K3 by shape.  Encoder: each batch's loop BN_ENC_STEPS steps x (1 +
+    # BN_MEAS) calls, one VAE mid-block attention each, and its target
+    # encode (batch 8: [8, 4096, 1, 512]; batch 1 with the other legs at
+    # [1, 4096, 1, 512]): 21 / 20 / 20 each.  Diffusion, SDXL: 1 + BN_MEAS
+    # steps of 10 reps, each rep's decode and the shared encode (11), and
+    # the target encode: 23 / 22 / 22 each; the SD-1.5 UNet's 5 long
+    # self-attentions x 2 steps x 10 reps a step ([2, 4096, 8, 40]): 200
+    # each.  K4 once a step of the two diffusion legs: 4; K5 once an encoder
+    # step: 20 at each batch.
+    cfg = bench.attack_config()
+    enc = (1 + BN_MEAS) * BN_ENC_STEPS
+    steps = 1 + BN_MEAS
+    unet = steps * cfg.grad_reps * unet_steps * unet_long_attentions(SD15_UNET, 512)
+    vae_bwd = enc + 2 * steps * (cfg.grad_reps + 1)
+    at_shape = {
+        "encoder_vae": {"tid_flash_fwd": enc + 1, "tid_flash_bwd_kv": enc,
+                        "tid_flash_bwd_q": enc},
+        "vae": {"tid_flash_fwd": vae_bwd + 3, "tid_flash_bwd_kv": vae_bwd,
+                "tid_flash_bwd_q": vae_bwd},
+        "unet": {k: unet for k in ("tid_flash_fwd", "tid_flash_bwd_kv", "tid_flash_bwd_q")}}
+    expected = {kern.symbol: 0 for kern in kernels}
+    for part in at_shape.values():
+        for sym, n in part.items():
+            expected[sym] += n
+    expected.update(tid_pgd_l2_update=2 * steps, tid_pgd_linf_update=2 * enc)
+    require(launches == expected, ("bench", launches, expected))
+    out = {"lines": lines, "wall_s": wall, "peak_gb": {"sd15_legs": peaks[0], "sdxl_leg": peaks[1]},
+           "held_before_sdxl_build_gb": held[0] / 1e9, "launches": launches,
+           "expected_launches": expected, "launches_at_shape": at_shape,
+           "k5_launches_at_shape": {"image": enc, "encoder_image": enc}}
+
+    model = build_model("sd15", image_size=512, device="cuda", dtype="bfloat16",
+                        generator=torch.Generator(device="cuda").manual_seed(0),
+                        attn_kv_chunk=bench.ATTN_KV_CHUNK)
+    src = bench._make_src(torch.Generator(device="cuda").manual_seed(1), torch.bfloat16, "cuda")
+    sampler, plan, data = bench.attack_setup(model, cfg, src, bench.DIFFUSION_BANK, cfg.n_noise, 2)
+    step = make_pgd_step(model, sampler, plan, cfg, decode_vis=False)
+    draws = bench.step_draws(cfg, plan, data, 200)
+    # the diffusion leg ran these shapes in this process: no warm-up
+    out["profile"] = profile_call(lambda: step(src, data, draws))
+    gcfg = dataclasses.replace(cfg, derive_norm_hyperparams=False, grad_reps=1)
+    out["bf16_gate"] = bf16_iteration_gate(
+        model, gcfg, (sampler, plan, data, bench.step_draws(gcfg, plan, data, 201)), layers, None)
+    return out
+
+
 #: path dp: the ranks spawned on the one card, the shards of the sharded
 #: gates, and the iterations of its ``api.immunize``
 DP_RANKS, DP_ITERATIONS = 2, 2
@@ -2549,6 +2656,7 @@ def dp_path(api, kernels, model, tmp: Path, source: Path, target: Path, adversar
 
     from tml_image_editing_defense_torch.attack.pgd import make_pgd_step
     from tml_image_editing_defense_torch.attack.universal import make_universal_step
+    from tml_image_editing_defense_torch.bench import pgd_launches
     from tml_image_editing_defense_torch.configs import TrainConfig
     from tml_image_editing_defense_torch.launch_host import spawn_local
     from tml_image_editing_defense_torch.models.unet import SD15_UNET
@@ -2706,10 +2814,11 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT))
     from PIL import Image
 
-    from tml_image_editing_defense_torch import api, cli
+    from tml_image_editing_defense_torch import api, bench, cli
     from tml_image_editing_defense_torch import prepare_real_weights as prep
     from tml_image_editing_defense_torch import universal_attack as ua
     from tml_image_editing_defense_torch.attack import universal
+    from tml_image_editing_defense_torch.bench import pgd_launches, unet_long_attentions
     from tml_image_editing_defense_torch.configs import TrainConfig
     from tml_image_editing_defense_torch.core.samplers import LCMSampler
     from tml_image_editing_defense_torch.core.schedule import make_noise_schedule
@@ -2741,7 +2850,7 @@ def main(argv) -> int:
     flash = {}
     for shape, dtypes in ((UNET_SHAPE, (torch.float32, torch.bfloat16)),
                           (VAE_SHAPE, (torch.float32, torch.bfloat16)),
-                          (ENC_ATTN_SHAPE, (torch.float32,)),
+                          (ENC_ATTN_SHAPE, (torch.float32, torch.bfloat16)),
                           (EVAL_UNET_SHAPE, (torch.float32,)), (EVAL_VAE_SHAPE, (torch.float32,)),
                           (SDXL_EVAL_UNET_SHAPE, (torch.float32, torch.bfloat16)),
                           (SDXL_EVAL_VAE_SHAPE, (torch.float32, torch.bfloat16)),
@@ -2880,7 +2989,8 @@ def main(argv) -> int:
             api, cfg, result.model, result.x_adv, kernels,
             {"tid_flash_fwd": per_it, "tid_flash_bwd_kv": per_it, "tid_flash_bwd_q": per_it,
              "tid_pgd_l2_update": 1}, tmp)
-        print(f"[resume] immunize resumed from the state after iteration 2: iteration 3 alone in "
+        print(f"[resume] immunize resumed from the state after iteration {ITERATIONS - 1}: "
+              f"iteration {ITERATIONS} alone in "
               f"{res['wall_s']:.2f} s (its metrics row at {res['iteration_row_t_s']:.2f} s after "
               f"the loop's start); |x_adv - uninterrupted|_max = {res['x_adv_max_abs_diff']:.2e} "
               f"<= 1e-3; launches {res['launches']}", flush=True)
@@ -2897,7 +3007,8 @@ def main(argv) -> int:
         # iterations with K4 taking the mask: the launches of path d, each
         # update through K4's masked entry and none through the unmasked one
         mcfg = dataclasses.replace(cfg, output_path=tmp / "out_masked", use_segmentation_mask=True,
-                                   segmentation_model_path=str(tmp / "rmbg"))
+                                   segmentation_model_path=str(tmp / "rmbg"),
+                                   n_optimization_steps=MASKED_ITERATIONS)
         masked_start, masked_t0 = torch.cuda.memory_allocated(), time.perf_counter()
         per_it = cfg.grad_reps * (2 * long_attn + 1) + 1
         msk = masked_path(
@@ -2917,7 +3028,7 @@ def main(argv) -> int:
               f"(again {msk['salient_mask_warm_wall_s'] * 1e3:.1f} ms), "
               f"peak {msk['isnet_peak_gb']:.2f} GB; mask share {msk['mask_share']:.4f} (heuristic "
               f"{msk['heuristic_share']:.4f})", flush=True)
-        print(f"[masked] immunize sd15 512x512 f32 with the ISNet mask, {ITERATIONS} iterations x "
+        print(f"[masked] immunize sd15 512x512 f32 with the ISNet mask, {MASKED_ITERATIONS} iterations x "
               f"{mcfg.grad_reps} reps: {msk['wall_s']:.1f} s in all (ISNet included), "
               f"{msk['s_per_iteration_after_first']:.2f} s/iteration after the first, peak "
               f"{msk['max_memory_allocated_gb']:.2f} GB above the "
@@ -3442,6 +3553,34 @@ def main(argv) -> int:
         x1["phase_s"] = time.perf_counter() - x1t0
         print(f"[sdxl-1024] phase xl1k in {x1['phase_s']:.1f} s (immunize, the profile, the f32 "
               f"gate)", flush=True)
+
+        # ---- the port's bench (bn) -------------------------------------------
+        # bench.encoder_leg, diffusion_leg and sdxl_leg through bench.run_legs
+        # in bf16 (the encoder at batches 1 and 8, the diffusion step on its
+        # model, SDXL at 512x512 after the card is emptied), cut to
+        # BN_ENC_STEPS encoder steps and BN_MEAS timed calls or steps a leg
+        bn = report["bench_path"] = bench_path(bench, kernels, layers, card, d_steps)
+        line, g = bn["lines"][-1], bn["bf16_gate"]
+        print(f"[bench] the port's bench legs, bf16, {BN_ENC_STEPS} encoder steps, {BN_MEAS} "
+              f"timed call or step a leg: {bn['wall_s']:.1f} s; encoder "
+              f"{line['value']:.4f} s/image at batch 8 ({line['encoder_batch1_s_per_image']:.4f} "
+              f"at batch 1; {line['encoder_mfu']:.2%} of the bf16 peak); diffusion "
+              f"{line['diffusion_pgd_s_per_step']:.3f} s/step ({line['mfu']:.2%}); SDXL 512x512 "
+              f"{line['sdxl_pgd_s_per_step']:.3f} s/step ({line['sdxl_mfu']:.2%}); peak "
+              f"{bn['peak_gb']['sd15_legs']:.2f} GB (SD-1.5 legs), "
+              f"{bn['peak_gb']['sdxl_leg']:.2f} GB (SDXL); {bn['held_before_sdxl_build_gb']:.3f} GB allocated "
+              f"before the SDXL build; launches {bn['launches']} (by shape "
+              f"{bn['launches_at_shape']})", flush=True)
+        print(f"[bench] line {json.dumps(line)}", flush=True)
+        print_profile("bf16 SD-1.5 512x512 diffusion-leg step (10 reps)", bn["profile"])
+        print(f"[gate] one bf16 SD-1.5 512x512 PGD iteration of 1 rep (the diffusion leg's "
+              f"inputs), K1-K4 against plain attention and the plain update on the same draws: "
+              f"update L2 difference {g['kernels_vs_plain']:.4f} of the update's <= "
+              f"{g['bound']:.4f} (twice the floor); noise floor: plain again "
+              f"{g['plain_vs_plain']:.4f}, plain with the draws at bf16's roundoff "
+              f"{g['floor_draws_at_bf16_roundoff']:.4f}; avg_loss {g['avg_loss_rel_diff']:.2e} "
+              f"relative, |x_adv diff|_max {g['x_adv_max_abs_diff']:.2e}", flush=True)
+        free_card(held, "bench")
         print("[memory] GB allocated on the card after each path: "
               + ", ".join(f"{k} {v:.3f}" for k, v in held.items())
               + f" (limit {HELD_LIMIT_GB})", flush=True)
@@ -3489,7 +3628,8 @@ def kernel_rows(flash, updates, report) -> list:
                 "batch": report["batch_path"]["launches"],
                 "batch-1024": report["batch_1024_path"]["launches"],
                 "sweep": report["sweep_path"]["launches"],
-                "dp": report["dp_path"]["launches"]}
+                "dp": report["dp_path"]["launches"],
+                "bench": report["bench_path"]["launches"]}
     # path dp: its ranks' counts, summed and by rank
     dp_by_rank = report["dp_path"]["immunize"]["launches_by_rank"]
     by_path = lambda sym: {path: counts[sym] for path, counts in launches.items()}  # noqa: E731
@@ -3517,6 +3657,9 @@ def kernel_rows(flash, updates, report) -> list:
                                                           SDXL_EVAL_VAE_SHAPE)),
                                           ("sweep", (UNET_SHAPE, VAE_SHAPE)))
                 for part, shape in (("unet", unet), ("vae", vae))}
+    by_shape.update({("bench", shape): report["bench_path"]["launches_at_shape"][part]
+                     for part, shape in (("unet", UNET_SHAPE), ("vae", VAE_SHAPE),
+                                         ("encoder_vae", ENC_ATTN_SHAPE))})
     rows = []
     for path, shape in (("diffusion", UNET_SHAPE), ("real-weights", UNET_SHAPE),
                         ("dp", UNET_SHAPE), ("inpaint", UNET_SHAPE),
@@ -3526,7 +3669,7 @@ def kernel_rows(flash, updates, report) -> list:
                         ("sdxl-evaluate", SDXL_EVAL_VAE_SHAPE), *by_shape,
                         ("sweep", EVAL_UNET_SHAPE), ("sweep", EVAL_VAE_SHAPE),
                         ("batch", VAE_SHAPE), ("batch-1024", UX_VAE_SHAPE)):
-        dtype = "bfloat16" if path in ("sdxl-1024", "batch-1024") else "float32"
+        dtype = "bfloat16" if path in ("sdxl-1024", "batch-1024", "bench") else "float32"
         r = flash[f"{shape}-{dtype}"]
         for name, sym, key, line in (("flash_fwd", "tid_flash_fwd", "fwd", 69),
                                      ("flash_bwd_kv", "tid_flash_bwd_kv", "bwd_kv", 148),
@@ -3558,9 +3701,13 @@ def kernel_rows(flash, updates, report) -> list:
                                      ("dp", "f32"), ("sdxl", "f32"), ("sdxl-1024", "bf16-1024"),
                                      ("batch", "batch3-f32"), ("batch-1024", "batch2-bf16-1024"),
                                      ("sweep", "f32"))]
+    update_rows.append(("pgd_l2_update", "bench", "tid_pgd_l2_update", 118, updates["l2"]["bf16"]))
     update_rows += [("pgd_linf_update", path, "tid_pgd_linf_update", 64,
-                     updates["linf"][f"{shape}-float32"])
-                    for path, shape in (("inpaint", IMAGE_SHAPE), ("encoder", ENC_IMAGE_SHAPE))]
+                     updates["linf"][f"{shape}-{dtype}"])
+                    for path, shape, dtype in (("inpaint", IMAGE_SHAPE, "float32"),
+                                               ("encoder", ENC_IMAGE_SHAPE, "float32"),
+                                               ("bench", IMAGE_SHAPE, "bfloat16"),
+                                               ("bench", ENC_IMAGE_SHAPE, "bfloat16"))]
     # the masked body (line 133), K4's masked entry, on path m
     update_rows.append(("pgd_l2_update_masked", "masked", "tid_pgd_l2_update_masked", 133,
                         updates["l2"]["f32-mask"]))
@@ -3576,6 +3723,9 @@ def kernel_rows(flash, updates, report) -> list:
         }
         if path == "dp":
             row["launches_by_rank"] = [counts[sym] for counts in dp_by_rank]
+        if path == "bench" and sym == "tid_pgd_linf_update":
+            row["launches_at_shape"] = report["bench_path"]["k5_launches_at_shape"][
+                "image" if r["shape"] == list(IMAGE_SHAPE) else "encoder_image"]
         rows.append(row)
     return rows
 

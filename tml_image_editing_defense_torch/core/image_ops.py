@@ -1,8 +1,9 @@
-"""Host image preprocessing (port of ``core/image_ops.py``, host path).
+"""Image preprocessing (port of ``core/image_ops.py``).
 
-torchvision-on-PIL semantics: ``Resize(size, BILINEAR)`` on the shorter
-side, ``CenterCrop(size)``, ``ToTensor``, ``Normalize([0.5], [0.5])``
-(data/dataset.py:16-35): images live in [-1, 1], NCHW.
+Host path: torchvision-on-PIL semantics, ``Resize(size, BILINEAR)`` on the
+shorter side, ``CenterCrop(size)``, ``ToTensor``, ``Normalize([0.5], [0.5])``
+(data/dataset.py:16-35): images live in [-1, 1], NCHW.  Device path: the
+same steps on NCHW tensors (JAX ``core/image_ops.py:89-119``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from PIL import Image
 
 
@@ -65,3 +67,45 @@ def to_pil(x: Union[np.ndarray, torch.Tensor], denormalize: bool = True) -> Imag
     x = np.clip(x, 0.0, 1.0)
     arr = (x * 255.0 + 0.5).astype(np.uint8).transpose(1, 2, 0)
     return Image.fromarray(arr)
+
+
+# ---------------------------------------------------------------------------
+# Device path (NCHW tensors)
+# ---------------------------------------------------------------------------
+
+
+def normalize(x: torch.Tensor) -> torch.Tensor:
+    """[0, 1] -> [-1, 1] (torchvision ``Normalize([0.5], [0.5])``)."""
+    return x * 2.0 - 1.0
+
+
+def denormalize(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] -> [0, 1], clamped (reference main.py:139)."""
+    return torch.clamp(x / 2.0 + 0.5, 0.0, 1.0)
+
+
+def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Antialiased bilinear resize of an NCHW batch, the shorter side to
+    ``size`` (``jax.image.resize(..., "bilinear", antialias=True)``)."""
+    h, w = x.shape[-2:]
+    if h <= w:
+        new_h, new_w = size, max(1, int(size * w / h))
+    else:
+        new_h, new_w = max(1, int(size * h / w)), size
+    return F.interpolate(x, size=(new_h, new_w), mode="bilinear", align_corners=False,
+                         antialias=True)
+
+
+def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
+    """The central ``size`` x ``size`` window (offsets rounded down)."""
+    h, w = x.shape[-2:]
+    top, left = (h - size) // 2, (w - size) // 2
+    return x[..., top:top + size, left:left + size]
+
+
+def quantize_uint8_roundtrip(x: torch.Tensor) -> torch.Tensor:
+    """uint8 quantize / dequantize of a [-1, 1] image, the PNG round trip
+    that is part of the reference's measured defense (main.py:618-621):
+    round half to even, clamp, uint8, back to ``x``'s dtype."""
+    u8 = torch.clamp(torch.round(denormalize(x) * 255.0), 0, 255).to(torch.uint8)
+    return normalize(u8.to(x.dtype) / 255.0)
