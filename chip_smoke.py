@@ -22,9 +22,11 @@ Phases, each fatal on failure:
    bf16 SDXL 1024x1024 immunize's shapes), at the batched immunization's
    [6, 4096, 8, 40] and [3, 4096, 1, 512] in f32 and, in bf16, at
    [4, 4096, 10, 64] and [2, 16384, 1, 512] (also the SDXL evaluation's
-   shapes in f32); K1-K3 at ragged T (70..1000)
+   shapes in f32); K1-K3 at ragged T (70..1000, also with B = 2 and H up to
+   3, so that a tile's rows past T border the next head and batch)
    at every compiled head dim (40, 64, 80, 512: every tile plan of K2/K3)
-   in f32 and bf16, and K1-K3's refusal of a misaligned tensor; the L2 PGD
+   in f32 and bf16 (bf16 K2, K3 also at the data's scale, normwise and at
+   the peak), and K1-K3's refusal of a misaligned tensor; the L2 PGD
    update K4 at [1, 3, 512, 512] with and without a 0/1 mask, at
    [8, 3, 512, 512] (per-sample norms) and in bf16 (within one bf16 ulp;
    also at [1, 3, 1024, 1024]), at the batched paths' [3, 3, 512, 512] f32
@@ -417,6 +419,22 @@ def max_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item()
 
 
+#: bf16 K2 and K3 against the plain versions, on top of the limit with its
+#: floor of 1: each of dQ, dK, dV within these shares of the data's own size,
+#: normwise (||got - ref|| / ||ref||) and at the peak (max |got - ref| over
+#: max |ref|).  On an H100 the kernels read at most 2.7e-3 and 7.5e-3 at every
+#: shape of the kernels phase, and a dS off by 10 % or one stale ring slot
+#: 1e-1 or more (``scripts/probe_flash_cuda.py --bf16``).
+BF16_BWD_NORM_TOL = 1e-2
+BF16_BWD_PEAK_TOL = 2 ** -5
+
+
+def scaled_errs(got, want) -> dict:
+    """``got`` against ``want``: normwise, and the peak error over the peak value."""
+    d, w = got.float() - want.float(), want.float()
+    return {"norm": (d.norm() / w.norm()).item(), "peak": (d.abs().max() / w.abs().max()).item()}
+
+
 def bf16_ulp(t):
     """One bf16 ulp at each value of ``t`` (8 significant bits)."""
     import torch
@@ -455,8 +473,10 @@ def ptxas_summary(report: str) -> list:
                     rest = mangled.split(tag)[1]
                     m = re.match(r"I(f|13__nv_bfloat16)((?:Li\d+E)*)E", rest)
                     e = re.match(r"INS_\d+(F32|BF16)ElemE(Lb1E)?", rest)
+                    w = re.match(r"_(tma|wide)I((?:Li\d+E)*)E", rest)
                     args = ([{"f": "f32"}.get(m[1], "bf16")] + re.findall(r"Li(\d+)E", m[2])
                             if m else [e[1].lower()] + (["mask"] if e[2] else []) if e
+                            else [f"bf16 {w[1]}"] + re.findall(r"Li(\d+)E", w[2]) if w
                             else [rest[1:40]])
                     name = f"{tag}<{', '.join(args)}>"
         elif "bytes spill stores" in line:
@@ -498,6 +518,16 @@ def check_flash(fa, shape, dtype, gen, times: bool) -> dict:
         if not errs[name] <= tols[name]:
             raise AssertionError(f"flash {name} {shape} {dtype}: max abs err {errs[name]:.3e} "
                                  f"over tolerance {tols[name]:.3e}")
+    if dtype == torch.bfloat16:
+        # at T = 4096 the values lie below 1, where the limit above is a flat
+        # 2e-2, about a typical gradient: hold K2 and K3 to the data's scale
+        out["scaled_err"] = {name: scaled_errs(got, ref) for name, got, ref in
+                             (("dk", dk, dk_ref), ("dv", dv, dv_ref), ("dq", dq, dq_ref))}
+        for name, e in out["scaled_err"].items():
+            if not (e["norm"] <= BF16_BWD_NORM_TOL and e["peak"] <= BF16_BWD_PEAK_TOL):
+                raise AssertionError(f"flash {name} {shape} bf16: normwise error {e['norm']:.3e}"
+                                     f", peak error over peak value {e['peak']:.3e} (limits "
+                                     f"{BF16_BWD_NORM_TOL:.1e}, {BF16_BWD_PEAK_TOL:.1e})")
     if not times:
         return out
     item = q.element_size()
@@ -2862,6 +2892,8 @@ def main(argv) -> int:
             flash[f"{shape}-{r['dtype']}"] = r
             print(f"[kernels] flash {shape} {r['dtype']}: max abs err "
                   + ", ".join(f"{k} {r['err'][k]:.2e} (tol {r['tol'][k]:.1e})" for k in r["err"])
+                  + "".join(f"; {k} normwise {e['norm']:.2e}, peak {e['peak']:.2e}"
+                            for k, e in r.get("scaled_err", {}).items())
                   + "; ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["ms"].items())
                   + "; plain ms " + ", ".join(f"{k} {v:.3f}" for k, v in r["plain_ms"].items())
                   + f"; bound ms at {r['peak_tflops']:.0f} TFLOP/s "
@@ -2874,14 +2906,21 @@ def main(argv) -> int:
                   + f"; K2+K3 {r['ms']['bwd']:.3f} ms against SDPA's backward "
                   f"{r['library_ms']['bwd']:.3f} ms ({r['ms']['bwd'] / r['library_ms']['bwd']:.2f}x)",
                   flush=True)
-    # ragged tails at every compiled head dim (every tile plan of K2/K3), f32 and bf16
+    # ragged tails at every compiled head dim (every tile plan of K2/K3), f32 and bf16;
+    # the last four cross a batch and a head boundary inside a tile of each bf16 plan
     for shape in ((1, 100, 2, 40), (2, 200, 3, 64), (1, 130, 2, 80), (1, 70, 1, 512),
-                  (1, 1000, 2, 40), (1, 1000, 2, 64), (1, 1000, 2, 80), (1, 1000, 1, 512)):
+                  (1, 1000, 2, 40), (1, 1000, 2, 64), (1, 1000, 2, 80), (1, 1000, 1, 512),
+                  (2, 300, 3, 40), (2, 333, 2, 64), (2, 150, 2, 80), (2, 70, 2, 512)):
         for dtype in (torch.float32, torch.bfloat16):
-            check_flash(fa, shape, dtype, gen, times=False)
+            r = check_flash(fa, shape, dtype, gen, times=False)
+            flash.setdefault("ragged_scaled_err", {})[f"{shape}"] = r.get("scaled_err")
     check_flash_refuses_misaligned(fa)
-    print("[kernels] flash ragged-tail shapes (T = 70..1000, D = 40/64/80/512, f32 and bf16) "
-          "agree; K1-K3 refuse a misaligned tensor", flush=True)
+    worst = {k: max(e[k] for es in flash["ragged_scaled_err"].values() if es
+                    for e in es.values()) for k in ("norm", "peak")}
+    print("[kernels] flash ragged-tail shapes (T = 70..1000, B and H up to 2 and 3, "
+          "D = 40/64/80/512, f32 and bf16) agree (bf16 K2/K3 at most normwise "
+          f"{worst['norm']:.2e}, peak {worst['peak']:.2e}); K1-K3 refuse a misaligned tensor",
+          flush=True)
     report["flash"], report["updates"] = flash, check_updates(pk, gen)
     PHASE_END_S["kernels"] = time.perf_counter() - STARTED
 

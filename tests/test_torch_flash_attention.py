@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from tml_image_editing_defense_tpu.models import layers as jl
+from tml_image_editing_defense_tpu.ops.flash_attention import _bwd as pallas_bwd
 from tml_image_editing_defense_tpu.ops.flash_attention import _flash_fwd_res as pallas_fwd_res
+from tml_image_editing_defense_tpu.ops.flash_attention import _from_bhtd, _to_bhtd
 from tml_image_editing_defense_tpu.ops.flash_attention import flash_attention as pallas_flash
 
 from tml_image_editing_defense_torch.models import layers as pl
@@ -230,6 +232,108 @@ def test_tf32_passes_against_the_f32_tolerance(kernel, shape, passes):
         assert max(errs) <= 1e-4, errs
     else:
         assert max(errs) > 1e-4, errs
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even), as f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _bwd_bf16_emulated(q, k, v, do, lse, delta, bs: int, kv_round=None):
+    """The bf16 K2 and K3 plans' arithmetic for one (b, h): q, k, v, dO
+    [T, D] holding bf16 values, lse and delta [T] f32.  Streamed tiles of
+    ``bs`` rows in order (64 at D <= 80, 16 at D = 512; the last one
+    ragged): S and dP in f32 from the bf16 operands, P = 2^(S scale log2(e)
+    - lse log2(e)) and dS = P (dP - delta) scale in f32, P and dS rounded
+    to bf16 as the operands of the next product, accumulators in f32.  K2
+    walks the Q tiles (dV += P^T dO, dK += dS^T Q), K3 the KV tiles
+    (dQ += dS K).  ``kv_round`` replaces K2's rounding of P and dS (D = 512:
+    K2 keeps its mma.sync plan, which rounds them to TF32).  Returns (dq,
+    dk, dv) rounded once to bf16."""
+    t, d = q.shape
+    scale = np.float32(1.0 / np.sqrt(d))
+    sl2 = torch.tensor(scale * np.float32(np.log2(np.e)), dtype=torch.float32)
+    l2 = lse * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    kv_round = kv_round or _bf16
+
+    def p_ds(qs, ks, dos, vs, l2s, ds_):
+        p = torch.exp2(qs @ ks.T * sl2 - l2s[:, None])
+        return p, p * (dos @ vs.T - ds_[:, None]) * scale
+
+    dk, dv, dq = torch.zeros_like(k), torch.zeros_like(v), torch.zeros_like(q)
+    for q0 in range(0, t, bs):          # K2: each Q tile against every KV row
+        sl = slice(q0, q0 + bs)
+        p, ds = p_ds(q[sl], k, do[sl], v, l2[sl], delta[sl])
+        dv += kv_round(p).T @ do[sl]
+        dk += kv_round(ds).T @ q[sl]
+    for k0 in range(0, t, bs):          # K3: every Q row against each KV tile
+        sl = slice(k0, k0 + bs)
+        _, ds = p_ds(q, k[sl], do, v[sl], l2, delta)
+        dq += _bf16(ds) @ k[sl]
+    return _bf16(dq), _bf16(dk), _bf16(dv)
+
+
+#: (shape, streamed tile rows): T a multiple of the Pallas block's 128
+BF16_CASES = [((2, 256, 2, 40), 64), ((1, 256, 2, 64), 64), ((1, 128, 1, 512), 16)]
+
+
+@pytest.mark.parametrize("shape,bs", BF16_CASES, ids=[f"D{c[0][-1]}" for c in BF16_CASES])
+def test_bf16_wgmma_arithmetic_against_pallas_and_reference(shape, bs):
+    """The bf16 K2 and K3 (csrc/flash_attention.cu, the wgmma plans; K2 at
+    D = 512 keeps its mma.sync plan) are meant to round P and dS to bf16
+    where the Pallas ``_bwd_kv_kernel`` and ``_bwd_q_kernel`` do, with f32
+    scores and accumulators.  This test pins those rounding points only: it
+    runs ``_bwd_bf16_emulated``, a plain-torch emulation of the plans'
+    arithmetic written here, and no code of the port or of its kernels, so
+    a change to the kernels cannot fail it.  The kernels themselves are
+    held against the plain versions on the card (``chip_smoke.check_flash``,
+    at the data's scale: ``BF16_BWD_NORM_TOL``, ``BF16_BWD_PEAK_TOL``).
+    The emulation, on bf16 inputs made from a seed, against:
+
+    - the Pallas ``_bwd`` in interpret mode on the same inputs, lse and o:
+      each output of a wgmma plan's emulation bit-equal on at least 99 % of
+      its elements, and every output within 2^-8 max(1, |ref|) (sums in
+      another order can move a P or dS element by one rounding step, which
+      moves an output by up to about 2^-9 of its largest element; measured:
+      at most 0.26 % of the elements differ, by at most 2^-9 max(1, |ref|));
+      K2 at D = 512, which rounds P and dS to TF32, within one bf16 ulp of
+      the largest element, 2^-7 max(1, |ref|) (measured: 41-43 % of dK and
+      dV differ, by at most 2^-8 max(1, |ref|));
+    - ``flash_bwd_reference`` (dense f32, rounded once): within the card's
+      bf16 tolerance, 2e-2 max(1, |ref|) (``chip_smoke.check_flash``;
+      measured: at most 3.9e-3, as the Pallas backward's own)."""
+    b, t, h, d = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd_reference(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    ref = fa.flash_bwd_reference(q, k, v, o, lse, do)
+    kv_wgmma = d <= 128
+    got = [torch.zeros(shape) for _ in range(3)]
+    for bi in range(b):
+        for hi in range(h):
+            parts = _bwd_bf16_emulated(*(x[bi, :, hi].float() for x in (q, k, v, do)),
+                                       lse[bi, :, hi], delta[bi, :, hi], bs,
+                                       None if kv_wgmma else _tf32)
+            for g, part in zip(got, parts):
+                g[bi, :, hi] = part
+
+    def jx(x):
+        return _to_bhtd(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
+
+    jlse = jnp.asarray(lse.permute(0, 2, 1).reshape(b * h, 1, t).numpy())
+    want = [np.array(_from_bhtd(x, b, h, d).astype(jnp.float32))
+            for x in pallas_bwd(jx(q), jx(k), jx(v), jx(o), jlse, jx(do), 1.0 / np.sqrt(d))]
+    for i, (g, w, r) in enumerate(zip(got, want, ref)):
+        w = torch.from_numpy(w)
+        wgmma_plan = i == 0 or kv_wgmma
+        if wgmma_plan:
+            assert (g != w).float().mean().item() <= 0.01
+        assert (g - w).abs().max().item() <= 2.0 ** (-8 if wgmma_plan else -7) * max(
+            1.0, w.abs().max().item())
+        r = r.float()
+        assert (g - r).abs().max().item() <= 2e-2 * max(1.0, r.abs().max().item())
 
 
 def test_launch_counters_stay_zero_on_cpu():

@@ -51,7 +51,8 @@ def test_importing_every_port_module_loads_no_jax():
 def test_no_source_file_imports_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|tml_image_editing_defense_tpu)\b", re.M)
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
-                 ROOT / "scripts" / "probe_remat_cuda.py"]:
+                 ROOT / "scripts" / "probe_remat_cuda.py",
+                 ROOT / "scripts" / "probe_flash_cuda.py"]:
         assert not pattern.search(path.read_text()), path
 
 

@@ -72,3 +72,41 @@ def test_perturbation_loss_matches_jax():
     np.testing.assert_allclose(
         losses.perturbation_loss(torch.from_numpy(x), torch.from_numpy(y)).item(),
         float(jl.perturbation_loss(jnp.asarray(x), jnp.asarray(y))), **TOL)
+
+
+@pytest.mark.parametrize("p", PS)
+def test_lp_regularization_matches_jax(p):
+    """``LpRegularization``: one tensor, and a list of tensors of two
+    shapes (the sum of their norms), value and gradient."""
+    x, y = _inputs(3)
+    z = np.random.default_rng(4).standard_normal((2, 5)).astype(np.float32)
+    jp = jnp.inf if p == math.inf else p
+    for arrays in ([x], [x, y, z]):
+        want, want_g = jax.value_and_grad(
+            lambda a: jl.lp_regularization(list(a) if len(a) > 1 else a[0], jp))(
+            [jnp.asarray(a) for a in arrays])
+        with torch.enable_grad():
+            ts = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+            got = losses.lp_regularization(ts if len(ts) > 1 else ts[0], p)
+            grads = torch.autograd.grad(got, ts)
+        np.testing.assert_allclose(got.item(), float(want), **TOL)
+        for g, wg in zip(grads, want_g):
+            np.testing.assert_allclose(g.numpy(), np.asarray(wg), **TOL)
+
+
+@pytest.mark.parametrize("axis", [1, -1, 2])
+def test_cosine_similarity_loss_matches_jax(axis):
+    """``CosineSimilarity``: mean(cos + 1) along ``axis``, value and
+    gradient; a zero row takes the ``eps`` floor on both sides."""
+    x, y = _inputs(5)
+    x[0, 1] = 0.0
+    want, want_g = jax.value_and_grad(
+        lambda a, b: jl.cosine_similarity_loss(a, b, axis=axis), argnums=(0, 1))(
+        jnp.asarray(x), jnp.asarray(y))
+    with torch.enable_grad():
+        xt, yt = (torch.from_numpy(a).requires_grad_(True) for a in (x, y))
+        got = losses.cosine_similarity_loss(xt, yt, axis=axis)
+        grads = torch.autograd.grad(got, [xt, yt])
+    np.testing.assert_allclose(got.item(), float(want), **TOL)
+    for g, wg in zip(grads, want_g):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wg), **TOL)

@@ -41,7 +41,11 @@ from tml_image_editing_defense_tpu.core.samplers import make_sampler as j_make_s
 from tml_image_editing_defense_tpu.models import build_model as jax_build_model
 from tml_image_editing_defense_tpu.models.model_zoo import PromptBank as JBank
 
-from tml_image_editing_defense_torch.attack.forward import CondInputs, attack_forward_from_latent
+from tml_image_editing_defense_torch.attack.forward import (
+    CondInputs,
+    attack_forward,
+    attack_forward_from_latent,
+)
 from tml_image_editing_defense_torch.attack.pgd import (
     EOTDraws,
     iteration_generator,
@@ -241,6 +245,12 @@ def test_pgd_step_matches_goldens(models):
 
 
 def test_attack_forward_matches_golden_and_jax(models):
+    """The image-to-latent forward against the JAX ``attack_forward`` and the
+    goldens on replayed draws (the posterior draw of ``k_vae``, the step
+    noises of ``k_chain``): the encode, ``sample_latent`` and
+    ``attack_forward_from_latent`` in turn, and ``attack_forward``, which
+    chains them; with no posterior draw, ``attack_forward`` starts from the
+    encode's mean."""
     jmodel, pm = models
     ref = np.load(GOLDEN_PATH)
     image = np.clip(_rand(1, (1, SIZE, SIZE, 3), 0.4), -1, 1)
@@ -257,14 +267,22 @@ def test_attack_forward_matches_golden_and_jax(models):
     steps = torch.stack([nchw(np.asarray(jax.random.normal(k, (1, 16, 16, 4))))[0]
                          for k in step_keys])
     sampler = LCMSampler(pm.schedule)
+    cond = CondInputs(ctx=torch.tensor(ctx))
     with torch.no_grad():
         mean, logvar = pm.vae.encode(nchw(image))
         z = sample_latent(mean, logvar, eps) * pm.vae_scaling
-        got = attack_forward_from_latent(pm, sampler, sampler.plan(2), z,
-                                         CondInputs(ctx=torch.tensor(ctx)), nchw(noise),
+        got = attack_forward_from_latent(pm, sampler, sampler.plan(2), z, cond, nchw(noise),
                                          GS, steps)
-    np.testing.assert_allclose(nhwc(got), np.asarray(want), **TOL)
-    np.testing.assert_allclose(nhwc(got), ref["attack_forward_latent"], **TOL)
+        entry = attack_forward(pm, sampler, sampler.plan(2), nchw(image), cond, nchw(noise), GS,
+                               eps, steps)
+        mean_path = attack_forward(pm, sampler, sampler.plan(2), nchw(image), cond, nchw(noise),
+                                   GS, None, steps)
+        from_mean = attack_forward_from_latent(pm, sampler, sampler.plan(2),
+                                               mean * pm.vae_scaling, cond, nchw(noise), GS, steps)
+    for out in (got, entry):
+        np.testing.assert_allclose(nhwc(out), np.asarray(want), **TOL)
+        np.testing.assert_allclose(nhwc(out), ref["attack_forward_latent"], **TOL)
+    torch.testing.assert_close(mean_path, from_mean, rtol=0, atol=0)
 
 
 def test_shared_encode_equals_per_rep_gradient():

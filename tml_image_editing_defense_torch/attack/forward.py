@@ -153,6 +153,26 @@ def attack_forward_from_latent(
     return x / model.vae_scaling
 
 
+def attack_forward(
+    model: DiffusionModel,
+    sampler: BaseSampler,
+    plan: DenoisePlan,
+    image: torch.Tensor,               # [B, 3, H, W] in [-1, 1]
+    cond: CondInputs,
+    init_noise: torch.Tensor,          # [B, C, h, w], the selected pool entries
+    guidance_scale: float,
+    vae_eps: Optional[torch.Tensor],   # [B, C, h, w], the posterior draw; None: its mean
+    step_noise: Optional[Sequence[torch.Tensor]],
+    remat_policy: str = "none",
+) -> torch.Tensor:
+    """Image to *unscaled* output latent (main.py:179-246, which returns
+    ``latents / 0.18215`` at :245): the VAE encode with the caller's
+    posterior draw, then :func:`attack_forward_from_latent`."""
+    z = model.encode_image(image, vae_eps)
+    return attack_forward_from_latent(model, sampler, plan, z, cond, init_noise, guidance_scale,
+                                      step_noise, remat_policy=remat_policy)
+
+
 def _checkpointed(body: Callable, saved_ops=None) -> Callable:
     """``body`` under ``torch.utils.checkpoint``: every activation is
     recomputed in the backward, except the outputs of ``saved_ops`` (aten

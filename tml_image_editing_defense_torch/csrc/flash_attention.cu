@@ -23,10 +23,11 @@
 // writes and re-reads a [B*H, T, T] f32 tensor per layer, 1 GB at the UNet
 // shape): each tile of S / P / dS lives in registers and shared memory only.
 //
-// All three kernels run their products -- S = QK^T and O += P V in K1;
-// S = QK^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K in K2 and
-// K3 -- on the tensor cores with mma.sync.m16n8k8 in TF32, so they are bound
-// by operations at the tensor cores' TF32 rate.
+// K1, and K2 and K3 in f32, run their products -- S = QK^T and O += P V in
+// K1; S = QK^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K in K2
+// and K3 -- on the tensor cores with mma.sync.m16n8k8 in TF32, so they are
+// bound by operations at the tensor cores' TF32 rate.  K2 and K3 in bf16
+// run them on wgmma at bf16's rate instead (below), but for K2 at D = 512.
 //  - f32 inputs: "3xTF32".  Each operand x is split in registers, as its
 //    fragment is loaded, into hi = tf32(x), rounded to nearest with ties
 //    away from zero as cvt.rna.tf32.f32 rounds (done with two integer ops,
@@ -37,14 +38,16 @@
 //    is f32-accurate at a third of the 495 TFLOP/s TF32 rate, 165 TFLOP/s,
 //    2.5x the CUDA cores'.  Shared memory holds each tile once, as the
 //    input type.
-//  - bf16 inputs: a bf16 value is exact in TF32, so one pass; P and dS round
-//    to TF32's 10 mantissa bits, finer than the bf16 output's 8.  The pass
-//    count is a compile-time parameter of one code path.
-//  - mma.sync, not wgmma: wgmma takes TF32 operands only K-major, and three
-//    of the five products contract over a tile's rows (P^T dO, dS^T Q,
-//    dS K).  mma.sync loads each fragment from shared memory in whichever
-//    orientation the tile sits.  Its ceiling on an H100 is about 320
-//    TFLOP/s in TF32 (two thirds of wgmma's), 107 in 3xTF32.
+//  - bf16 inputs to these plans (K1; K2 at D = 512): a bf16 value is exact
+//    in TF32, so one pass; P and dS round to TF32's 10 mantissa bits, finer
+//    than the bf16 output's 8.  The pass count is a compile-time parameter
+//    of one code path.
+//  - mma.sync, not wgmma, in f32: wgmma takes TF32 operands only K-major,
+//    and three of the five products contract over a tile's rows (P^T dO,
+//    dS^T Q, dS K).  mma.sync loads each fragment from shared memory in
+//    whichever orientation the tile sits.  Its ceiling on an H100 is about
+//    320 TFLOP/s in TF32 (two thirds of wgmma's), 107 in 3xTF32.  A 16-bit
+//    wgmma operand may be K-major or MN-major, so the bf16 K2 and K3 use it.
 //  - The backward in two kernels, no atomics: K2 owns a KV tile and loops
 //    over the Q tiles, K3 (like K1) owns a Q tile and loops over the KV
 //    tiles, as the TPU grid's sequential axis did, so results are the same
@@ -83,7 +86,7 @@
 //    (32 accumulator registers).  f32: the ring's two stages (132 KB) and
 //    the partial scores (24 KB), one block an SM; 128 registers, no spills.
 //
-// K2/K3's tile plans (BwdPlan):
+// K2/K3's f32 plans (BwdPlan; also K2's bf16 plan at D = 512):
 //  - D <= 80: 64-row tiles, 4 warps, each warp 16 rows of the 64 x 64 score
 //    tile (the flash-2 layout), so S / dP -> P / dS -> dV, dK (or dQ) stay in
 //    one warp's registers.  f32 D = 40: 68 KB of shared memory, 3
@@ -107,9 +110,56 @@
 // copied 85 %.  K1 takes 79 % of its time without the copies, when its
 // products run at about half the mma.sync 3xTF32 ceiling, and the copies
 // alone (17.2 GB read through L2) take 63 %.
+//
+// K2/K3's bf16 plans (WgPlan), on wgmma.mma_async bf16 -> f32.  P and dS
+// are computed in f32 and rounded to bf16 only as the A operand of the next
+// product, where the Pallas kernels round them; accumulators are f32 and the
+// outputs are rounded once.  Tiles sit in shared memory chunk-column by
+// chunk-column (16 bytes of eight rows' columns, then the next chunk), no
+// swizzle: eight rows of a chunk are one wgmma core matrix, so one tile is
+// a K-major operand (S = Q K^T) and an MN-major one (dV += P^T dO) alike.
+//  - D <= 80: a block of three warpgroups.  Two consumers each own 64 of
+//    the 128 resident rows (K2: K and V; K3: Q and dO; the 64 x 64 score
+//    tile of a streamed tile in 32 + 32 accumulator registers a thread) and
+//    one producer warp keeps the streamed 64-row tiles (K2: Q, dO and their
+//    lse, delta; K3: K, V) coming by TMA into a four-stage ring of
+//    mbarriers (full: the tile's bytes and, in K2, the 32 lanes' statistics;
+//    empty: the 8 consumer warps), so the consumers issue no copies and
+//    never wait on each other.  A TMA map over [B, T, H, D] with a box of
+//    8 columns x rows fills one chunk column (CH boxes a tile) and reads
+//    rows past T as zeros; D = 40 pads its third k-step with a chunk of
+//    zeros the block writes once.  S^T = K Q^T and dP^T = V dO^T (K2; S, dP
+//    in K3) run with the resident rows as A from registers (loaded once;
+//    K2 at D = 80 reads K and V from shared memory: its registers run out),
+//    the streamed tile K-major as B, m64n64k16, ceil(D / 16) k-steps; P and
+//    dS go from the accumulator to bf16 A fragments in registers and the
+//    gradient products take the streamed tile MN-major, m64nDk16, four
+//    k-steps.  A tile's gradient products run on while the next tile's
+//    scores are issued (its ring slot is released once they are done);
+//    2^x is ex2.approx.ftz.  K2 needs no mask: a Q row past T arrives as
+//    zeros with lse = delta = 0 (P = 1 meets a zero dO row, dS = 0); K3
+//    masks the KV rows past T, whose P = 2^-lse could overflow.
+//    setmaxnreg moves registers from the producer (40) to the consumers
+//    (232 a thread; the block starts at 168).  Shared
+//    memory: 75, 99 and 123 KB at D = 40, 64, 80; one block an SM; grid
+//    ceil(T / 128) x B*H (640 blocks at [2, 4096, 10, 64]).
+//  - D = 512 (K3): four warpgroups share 64 resident Q rows, warpgroup w
+//    D columns [128 w, 128 w + 128); a 64-row tile is 64 KB, so the streamed
+//    K and V tiles are 16 rows, copied by cp.async into a two-stage ring.
+//    Each warpgroup takes its part of S and dP over its columns
+//    (m64n16k16, A and B from shared memory, 8 k-steps) and the four parts
+//    are summed through shared memory in a fixed order (32 KB); dQ += dS K
+//    is one m64n128k16 a warpgroup.  225 KB of shared memory, 117 registers.
+//  - D = 512 (K2) keeps the mma.sync plan: a wgmma plan holding dK and dV
+//    for 64 KV rows (256 KB of f32, the whole register file) had to split
+//    them between two blocks, which both recompute S^T, and re-read its
+//    64-row K and V tiles from shared memory for every 16-row Q tile; it
+//    took 7.1-7.4 ms at [8, 4096, 1, 512] against this plan's 6.1-6.3
+//    (NVIDIA H100 80GB HBM3, 700 W; scripts/probe_flash_cuda.py --bf16).
 // Later work: sharing the streamed tiles between the blocks of a cluster
-// (TMA multicast), and wgmma and TMA for the bf16 path.
+// (TMA multicast), wgmma for the bf16 K1.
 
+#include <cuda.h>   // CUtensorMap; its encoder is reached through the runtime, no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -849,6 +899,789 @@ flash_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   store_acc<T, P::NACC>(dq + base, dq_acc, r0, c0, T_len, rs, g, t);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K2 and K3 on wgmma (sm_90a); see the note at the top for the plans.
+//
+// Shared-memory tiles of these plans hold R rows of 16-byte chunks (eight
+// bf16 columns each) chunk-column by chunk-column: chunk c of row r at byte
+// 16 (c R + r).  Eight consecutive rows of one chunk are one wgmma core
+// matrix (8 x 16 bytes, contiguous), so one tile, without swizzle, is an
+// operand K-major (contracted over its columns: S = Q K^T) and MN-major
+// (contracted over its rows: dV += P^T dO) alike.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// wgmma matrix descriptor without swizzle: start address, leading-dimension
+// byte offset (between core matrices along the contraction) and
+// stride-dimension byte offset (between core matrices along M or N), each
+// in 16-byte units.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3fffu) | (uint64_t)((lbo >> 4) & 0x3fffu) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3fffu) << 32;
+}
+
+// K-major operand: rows [r0, r0 + 8 n) of a tile of R rows, k-step ks
+// (chunks 2 ks and 2 ks + 1).
+template <int R>
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int r0, int ks) {
+  return gmma_desc(smem_addr(tile) + (2 * ks * R + r0) * 16, R * 16, 128);
+}
+
+// MN-major operand: rows [16 ks, 16 ks + 16) of a tile of R rows as the
+// contraction, its chunks from c0 on as N.
+template <int R>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int c0, int ks) {
+  return gmma_desc(smem_addr(tile) + (c0 * R + 16 * ks) * 16, 128, R * 16);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Orders every later read of an accumulator after the wait above it.
+template <int N> __device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Makes this thread's finished cp.async and st.shared writes visible to
+// wgmma, which reads shared memory through the async proxy.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// p, hidden from the compiler anew at each use: the descriptors made from it
+// inside a loop are then not kept live across the loop, one per k-step.
+template <typename T> __device__ __forceinline__ T* launder(T* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// wgmma.m64nNk16, bf16 operands, f32 accumulators: D = A B + D, or D = A B
+// where scale_d is 0 (so that no instruction but a wgmma writes an
+// accumulator, which would make ptxas serialize the pipeline).  The
+// accumulator of a [64 x N] product: warp w of the warpgroup holds rows
+// 16 w + g and 16 w + g + 8; d[4 n + e] is (row 16 w + g + 8 (e >> 1),
+// column 8 n + 2 t + (e & 1)), lane = 4 g + t.
+
+// D[64 x 16] += A B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x 64] += A B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D[64 x N] += A B, A from registers (a bf16 A fragment), B in shared memory,
+// K-major (TB = 0) or MN-major (TB = 1).
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[20], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, {%20, %21, %22, %23}, %24, p, 1, 1, %26;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// A fragment of k-step j (columns 16 j .. 16 j + 15) of a [64 x N]
+// accumulator, rounded to bf16: the layout of wgmma's A in registers.
+template <int N>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&x)[N], int j) {
+  a[0] = pack_bf16(x[8 * j], x[8 * j + 1]);
+  a[1] = pack_bf16(x[8 * j + 2], x[8 * j + 3]);
+  a[2] = pack_bf16(x[8 * j + 4], x[8 * j + 5]);
+  a[3] = pack_bf16(x[8 * j + 6], x[8 * j + 7]);
+}
+
+// A fragments of k-steps [0, KS) for the 16 rows from r0 (this warp's part of
+// a warpgroup's 64) of a chunk-column tile of R rows: a[ks] holds rows
+// r0 + g, r0 + g + 8 and columns 16 ks + 2 t, + 1 and 16 ks + 8 + 2 t, + 1.
+template <int R, int KS>
+__device__ __forceinline__ void load_a(uint32_t (&a)[KS][4], const bf16* tile, int r0, int g,
+                                       int t) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const bf16* c0 = tile + ((2 * ks) * R + r0 + g) * 8 + 2 * t;   // chunk 2 ks
+    const bf16* c1 = c0 + R * 8;                                   // chunk 2 ks + 1
+    a[ks][0] = *reinterpret_cast<const uint32_t*>(c0);
+    a[ks][1] = *reinterpret_cast<const uint32_t*>(c0 + 64);          // 8 rows on
+    a[ks][2] = *reinterpret_cast<const uint32_t*>(c1);
+    a[ks][3] = *reinterpret_cast<const uint32_t*>(c1 + 64);
+  }
+}
+
+// R rows of one (b, h) slice, from row0, into a chunk-column tile of R rows
+// by 16-byte cp.async; rows at or past T are zero-filled.  Eight
+// neighbouring threads copy one chunk of eight rows (128 contiguous bytes of
+// shared memory), the next eight the next chunk of the same rows, so a warp
+// reads 64 contiguous bytes of each of eight rows.
+template <int D, int R, int NT>
+__device__ __forceinline__ void copy_tile(bf16* s, const bf16* g, int row0, int T_len, int rs) {
+  constexpr int CH = D / 8, N = R * CH;
+  static_assert(R % 8 == 0, "whole core matrices");
+#pragma unroll
+  for (int j = 0; j < (N + NT - 1) / NT; ++j) {
+    const int i = threadIdx.x + j * NT;
+    if (N % NT != 0 && i >= N) break;
+    const int u = i >> 3, c = u % CH, r = (u / CH) * 8 + (i & 7), t = row0 + r;
+    const bool ok = t < T_len;
+    cp_async_16(s + (c * R + r) * 8, g + (size_t)(ok ? t : 0) * rs + c * 8, ok);
+  }
+}
+
+// Chunk c of every row of a chunk-column tile of R rows, set to zero.
+template <int R, int NT>
+__device__ __forceinline__ void zero_chunk(bf16* s, int c) {
+  for (int r = threadIdx.x; r < R; r += NT)
+    *reinterpret_cast<uint4*>(s + (c * R + r) * 8) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// A warpgroup's [64 x N] accumulator (rows r0 + 16 w + g, + 8; columns
+// c0 + 8 n + 2 t, + 1) into a [T, D] slice of row stride rs, rounded once to
+// bf16; rows past T drop.
+template <int N>
+__device__ __forceinline__ void store_frag(bf16* out, const float (&acc)[N], int r0, int c0,
+                                           int T_len, int rs, int g, int t) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= T_len) continue;
+#pragma unroll
+    for (int n = 0; n < N / 4; ++n)
+      store2(out + (size_t)row * rs + c0 + 8 * n + 2 * t, acc[4 * n + 2 * half],
+             acc[4 * n + 2 * half + 1]);
+  }
+}
+
+// The bf16 plans of K2 and K3 for head dim D (see the note at the top).
+template <int D, bool AREG_ = true> struct WgPlan {
+  static constexpr bool WIDE = D > 128;
+  static constexpr int NWG = WIDE ? 4 : 2;                // consumer warpgroups
+  static constexpr int NT = 128 * NWG;                    // their threads
+  static constexpr int NTB = NT + (WIDE ? 0 : 128);       // small: and a producer warpgroup
+  static constexpr int RES = WIDE ? 64 : 64 * NWG;        // resident rows
+  static constexpr int BS = WIDE ? 16 : 64;               // streamed rows a tile
+  // small plans: the resident tiles' A fragments of the score products held
+  // in registers, loaded once, rather than read from shared memory each tile
+  static constexpr bool AREG = AREG_ && !WIDE;
+  static constexpr int STAGES = WIDE ? 2 : 4;             // the ring's stages
+  static constexpr int CH = D / 8, KS = (CH + 1) / 2;     // chunks of a row, k-steps over D
+  static constexpr int CP = 2 * KS;                       // chunk columns kept (D = 40: one zero)
+  static constexpr int DW = WIDE ? D / NWG : D;           // gradient columns a warpgroup
+  static constexpr int KW = WIDE ? DW / 16 : KS;          // k-steps of a warpgroup's scores
+  static constexpr int NS = BS / 2, ND = DW / 2;          // accumulator registers: scores, gradient
+  static constexpr int RES_TILE = RES * CP * 16, ST_TILE = BS * CP * 16;   // bytes
+  static constexpr int STAGE = 2 * ST_TILE + 2 * BS * 4;  // two tiles and (K2) lse, delta
+  static constexpr int RSTAT = WIDE ? 2 * RES * 4 : 0;    // wide K3: the resident lse, delta
+  static constexpr int PART = WIDE ? NWG * 2 * 128 * NS * 4 : 0;   // wide: partial scores
+  static constexpr int BARS = WIDE ? 0 : 8 * (2 * STAGES + 1);     // small: the ring's mbarriers
+  static constexpr size_t smem =
+      2 * (size_t)RES_TILE + STAGES * (size_t)STAGE + RSTAT + PART + BARS;
+  static_assert(D % 8 == 0 && (WIDE ? DW % 16 == 0 : DW <= 256), "whole chunks and k-steps");
+  static_assert(RES <= NT && BS <= NT && RES <= 256 && BS <= 256, "row statistics; TMA boxes");
+  static_assert(smem <= 232448, "a block's shared memory");
+};
+
+// K2 at D = 80 keeps K and V in shared memory: their A fragments would take
+// the consumers past their 232 registers
+template <int D> using KvPlan = WgPlan<D, (D <= 64)>;   // K2's
+template <int D> using QPlan = WgPlan<D>;               // K3's
+
+// 2^x on the special-function unit, subnormal results flushed to zero (P
+// rounds to bf16, whose smallest normal is 2^-126, for a product at once).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// --- the small plans' copies: TMA into an mbarrier ring ---------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+// One arrival, and `bytes` more for the phase to wait for from TMA.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Until the phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Chunk column c (8 columns) of `rows` rows of one (b, h), from row t0, by
+// TMA into shared memory (16 rows' bytes a row: the chunk-column layout);
+// rows at or past T arrive as zeros.  The map's box is 8 x 1 x rows x 1.
+__device__ __forceinline__ void tma_chunk(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c,
+                                          int h, int t0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(8 * c), "r"(h), "r"(t0), "r"(b),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A warpgroup's register budget a thread, moved at run time: the block starts
+// with 168 (65,536 over three warpgroups); the producer drops to 40 and the
+// two consumer warpgroups rise to 232 (2 x 232 + 40 = 504 of 512).
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// The ring of a small plan: STAGES slots, each with a full barrier (its tiles
+// and statistics are here) and an empty barrier (every consumer warp is done
+// with it), and the barrier of the resident tiles.
+struct Ring {
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* res;
+};
+
+// Set up by thread 0; the block then synchronises before any use.
+template <int STAGES>
+__device__ __forceinline__ Ring ring_init(unsigned char* at, uint32_t full_count,
+                                          uint32_t consumer_warps) {
+  uint64_t* bars = reinterpret_cast<uint64_t*>(at);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + s, full_count);
+      mbar_init(bars + STAGES + s, consumer_warps);
+    }
+    mbar_init(bars + 2 * STAGES, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  return Ring{bars, bars + STAGES, bars + 2 * STAGES};
+}
+
+// ---------------------------------------------------------------------------
+// K2 in bf16, small plan (D <= 80): dK, dV.  Grid (ceil(T/RES), B*H); one
+// block per (b*h, RES-row KV tile): two consumer warpgroups, warpgroup w on
+// KV rows [64 w, 64 w + 64), and a producer warp that keeps the Q and dO
+// tiles (TMA) and their lse and delta (loads) of the next tiles in the ring.
+//   S^T = K Q^T; dP^T = V dO^T; P^T = exp(S^T scale - lse);
+//   dS^T = P^T (dP^T - delta) scale; dV += P^T dO; dK += dS^T Q.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(KvPlan<D>::NTB, 1)
+flash_bwd_kv_kernel_tma(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int T_len, int H,
+                        float scale) {
+  using P = KvPlan<D>;
+  constexpr int RES = P::RES, BS = P::BS, NT = P::NT, NS = P::NS, ST = P::STAGES;
+  extern __shared__ __align__(128) unsigned char smem_tma[];   // TMA: 128-byte aligned
+  bf16* sK = reinterpret_cast<bf16*>(smem_tma);
+  bf16* sV = sK + RES * P::CP * 8;
+  unsigned char* ring = smem_tma + 2 * P::RES_TILE;   // [STAGES][Q, dO, lse, delta]
+  const Ring bar = ring_init<ST>(ring + ST * P::STAGE, 1 + 32, NT / 32);
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.x * RES;
+  const size_t sbase = (size_t)b * T_len * H + h;
+  const int n_tiles = (T_len + BS - 1) / BS;
+  auto slot = [&](int i) { return ring + (i % ST) * P::STAGE; };
+  if constexpr (P::CP != P::CH) {   // the zero chunk that pads D to whole k-steps
+    zero_chunk<RES, P::NTB>(sK, P::CH);
+    zero_chunk<RES, P::NTB>(sV, P::CH);
+    for (int i = 0; i < ST; ++i) {
+      zero_chunk<BS, P::NTB>(reinterpret_cast<bf16*>(slot(i)), P::CH);
+      zero_chunk<BS, P::NTB>(reinterpret_cast<bf16*>(slot(i) + P::ST_TILE), P::CH);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  if (threadIdx.x >= NT) {   // the producer warpgroup: one warp copies, the rest leave
+    setmaxnreg_dec<40>();
+    if (threadIdx.x >= NT + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_tx(bar.res, 2 * P::CH * RES * 16);
+      for (int c = 0; c < P::CH; ++c) {
+        tma_chunk(sK + c * RES * 8, &map_k, bar.res, c, h, k0, b);
+        tma_chunk(sV + c * RES * 8, &map_v, bar.res, c, h, k0, b);
+      }
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % ST;
+      if (j >= ST) mbar_wait(bar.empty + s, (j / ST + 1) & 1);
+      bf16* cQ = reinterpret_cast<bf16*>(slot(j));
+      bf16* cdO = reinterpret_cast<bf16*>(slot(j) + P::ST_TILE);
+      if (lane == 0) {
+        mbar_arrive_tx(bar.full + s, 2 * P::CH * BS * 16);
+        for (int c = 0; c < P::CH; ++c) {
+          tma_chunk(cQ + c * BS * 8, &map_q, bar.full + s, c, h, j * BS, b);
+          tma_chunk(cdO + c * BS * 8, &map_do, bar.full + s, c, h, j * BS, b);
+        }
+      }
+      float* st = reinterpret_cast<float*>(slot(j) + 2 * P::ST_TILE);
+      for (int r = lane; r < BS; r += 32) {
+        const int t = j * BS + r;
+        st[r] = t < T_len ? lse[sbase + (size_t)t * H] * kLog2e : 0.f;   // base 2
+        st[BS + r] = t < T_len ? delta[sbase + (size_t)t * H] : 0.f;
+      }
+      mbar_arrive(bar.full + s);   // each lane, after its statistics; lane 0 also for the bytes
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();   // the consumers take what the producer gave up
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  const int wi = tw >> 5, lane = tw & 31, g = lane >> 2, t = lane & 3;
+  const float sl2 = scale * kLog2e;
+  float acc[2][P::ND];   // dV, dK; set by the first tile's wgmma
+  mbar_wait(bar.res, 0);
+  uint32_t ka[P::AREG ? P::KS : 1][4], va[P::AREG ? P::KS : 1][4];   // K, V rows as A
+  if constexpr (P::AREG) {
+    load_a<RES>(ka, sK, 64 * wg + 16 * wi, g, t);
+    load_a<RES>(va, sV, 64 * wg + 16 * wi, g, t);
+  }
+  for (int i = 0; i < n_tiles; ++i) {
+    mbar_wait(bar.full + i % ST, (i / ST) & 1);
+    const unsigned char* s = slot(i);
+    const bf16* cQ = reinterpret_cast<const bf16*>(s);
+    const bf16* cdO = reinterpret_cast<const bf16*>(s + P::ST_TILE);
+    const float* cL = reinterpret_cast<const float*>(s + 2 * P::ST_TILE);
+    const float* cD = cL + BS;
+    float x[NS], y[NS];   // S^T, dP^T: this warpgroup's 64 KV rows x the tile's BS Q rows
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < P::KS; ++ks) {
+      if constexpr (P::AREG) {
+        wgmma_rs<0>(x, ka[ks], desc_k<BS>(cQ, 0, ks), ks > 0);
+      } else {
+        wgmma_ss(x, desc_k<RES>(launder(sK), 64 * wg, ks), desc_k<BS>(cQ, 0, ks), ks > 0);
+      }
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < P::KS; ++ks) {
+      if constexpr (P::AREG) {
+        wgmma_rs<0>(y, va[ks], desc_k<BS>(cdO, 0, ks), ks > 0);
+      } else {
+        wgmma_ss(y, desc_k<RES>(launder(sV), 64 * wg, ks), desc_k<BS>(cdO, 0, ks), ks > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // S^T is here, and the products of tile i - 1 are done
+    reg_fence(x);
+    if (i > 0 && lane == 0) mbar_arrive(bar.empty + (i - 1) % ST);
+    // P^T in x: element e of 8-column block n is column (Q row) 8 n + 2 t + (e & 1).
+    // No mask: a Q row past T arrives as zeros with lse = delta = 0, so its
+    // P = 1 meets a zero dO row and its dS = 0 a zero Q row.
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[4 * n + e] = ex2(x[4 * n + e] * sl2 - cL[8 * n + 2 * t + (e & 1)]);
+    uint32_t a[BS / 16][4];
+#pragma unroll
+    for (int j = 0; j < BS / 16; ++j) a_frag(a[j], x, j);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BS / 16; ++j)
+      wgmma_rs<1>(acc[0], a[j], desc_mn<BS>(cdO, 0, j), i + j > 0);
+    wgmma_commit();
+    wgmma_wait<1>();   // dP^T is here; dV += P^T dO runs on
+    reg_fence(y);
+    // dS^T
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        y[4 * n + e] = x[4 * n + e] * (y[4 * n + e] - cD[c]) * scale;
+      }
+    uint32_t a2[BS / 16][4];
+#pragma unroll
+    for (int j = 0; j < BS / 16; ++j) a_frag(a2[j], y, j);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BS / 16; ++j)
+      wgmma_rs<1>(acc[1], a2[j], desc_mn<BS>(cQ, 0, j), i + j > 0);
+    wgmma_commit();   // dV and dK run on into the next tile's scores
+  }
+  wgmma_wait<0>();
+  reg_fence(acc[0]);
+  reg_fence(acc[1]);
+  const size_t base = sbase * D;
+  const int r0 = k0 + 64 * wg + 16 * wi;
+  store_frag(dv + base, acc[0], r0, 0, T_len, H * D, g, t);
+  store_frag(dk + base, acc[1], r0, 0, T_len, H * D, g, t);
+}
+
+// ---------------------------------------------------------------------------
+// K3 in bf16, small plan: dQ.  Grid (ceil(T/RES), B*H); Q and dO resident
+// (TMA), each thread's two rows of lse and delta in registers, K and V
+// streamed by the producer warp.  Warpgroup w: Q rows [64 w, 64 w + 64).
+//   S = Q K^T; dP = dO V^T; dS = exp(S scale - lse) (dP - delta) scale;
+//   dQ += dS K.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(QPlan<D>::NTB, 1)
+flash_bwd_q_kernel_tma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dq, int T_len, int H, float scale) {
+  using P = QPlan<D>;
+  constexpr int RES = P::RES, BS = P::BS, NT = P::NT, NS = P::NS, ST = P::STAGES;
+  extern __shared__ __align__(128) unsigned char smem_tma[];   // TMA: 128-byte aligned
+  bf16* sQ = reinterpret_cast<bf16*>(smem_tma);
+  bf16* sdO = sQ + RES * P::CP * 8;
+  unsigned char* ring = smem_tma + 2 * P::RES_TILE;   // [STAGES][K, V]
+  const Ring bar = ring_init<ST>(ring + ST * P::STAGE, 1, NT / 32);
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * RES;
+  const size_t sbase = (size_t)b * T_len * H + h;
+  const int n_tiles = (T_len + BS - 1) / BS;
+  auto slot = [&](int i) { return ring + (i % ST) * P::STAGE; };
+  if constexpr (P::CP != P::CH) {
+    zero_chunk<RES, P::NTB>(sQ, P::CH);
+    zero_chunk<RES, P::NTB>(sdO, P::CH);
+    for (int i = 0; i < ST; ++i) {
+      zero_chunk<BS, P::NTB>(reinterpret_cast<bf16*>(slot(i)), P::CH);
+      zero_chunk<BS, P::NTB>(reinterpret_cast<bf16*>(slot(i) + P::ST_TILE), P::CH);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  if (threadIdx.x >= NT) {   // the producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != NT) return;
+    mbar_arrive_tx(bar.res, 2 * P::CH * RES * 16);
+    for (int c = 0; c < P::CH; ++c) {
+      tma_chunk(sQ + c * RES * 8, &map_q, bar.res, c, h, q0, b);
+      tma_chunk(sdO + c * RES * 8, &map_do, bar.res, c, h, q0, b);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % ST;
+      if (j >= ST) mbar_wait(bar.empty + s, (j / ST + 1) & 1);
+      bf16* cK = reinterpret_cast<bf16*>(slot(j));
+      bf16* cV = reinterpret_cast<bf16*>(slot(j) + P::ST_TILE);
+      mbar_arrive_tx(bar.full + s, 2 * P::CH * BS * 16);
+      for (int c = 0; c < P::CH; ++c) {
+        tma_chunk(cK + c * BS * 8, &map_k, bar.full + s, c, h, j * BS, b);
+        tma_chunk(cV + c * BS * 8, &map_v, bar.full + s, c, h, j * BS, b);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();   // the consumers take what the producer gave up
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  const int wi = tw >> 5, lane = tw & 31, g = lane >> 2, t = lane & 3;
+  const float sl2 = scale * kLog2e;
+  // this thread's Q rows: 16 wi + g and 16 wi + g + 8 of its warpgroup's 64
+  const int r_own = q0 + 64 * wg + 16 * wi + g;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool ok = r_own + 8 * r < T_len;
+    l2[r] = ok ? lse[sbase + (size_t)(r_own + 8 * r) * H] * kLog2e : 0.f;
+    dl[r] = ok ? delta[sbase + (size_t)(r_own + 8 * r) * H] : 0.f;
+  }
+  float dq_acc[P::ND];   // set by the first tile's wgmma
+  mbar_wait(bar.res, 0);
+  uint32_t qa[P::KS][4], oa[P::KS][4];   // Q, dO rows as A
+  load_a<RES>(qa, sQ, 64 * wg + 16 * wi, g, t);
+  load_a<RES>(oa, sdO, 64 * wg + 16 * wi, g, t);
+  for (int i = 0; i < n_tiles; ++i) {
+    mbar_wait(bar.full + i % ST, (i / ST) & 1);
+    const bf16* cK = reinterpret_cast<const bf16*>(slot(i));
+    const bf16* cV = reinterpret_cast<const bf16*>(slot(i) + P::ST_TILE);
+    const int k0 = i * BS;
+    float x[NS], y[NS];   // S, dP: this warpgroup's 64 Q rows x the tile's BS KV rows
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < P::KS; ++ks) wgmma_rs<0>(x, qa[ks], desc_k<BS>(cK, 0, ks), ks > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int ks = 0; ks < P::KS; ++ks) wgmma_rs<0>(y, oa[ks], desc_k<BS>(cV, 0, ks), ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();   // S is here, and dQ of tile i - 1 is done
+    reg_fence(x);
+    if (i > 0 && lane == 0) mbar_arrive(bar.empty + (i - 1) % ST);
+    // P in x: element e of 8-column block n is row r_own + 8 (e >> 1), column
+    // (KV row) 8 n + 2 t + (e & 1)
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        x[4 * n + e] = k0 + c < T_len ? ex2(x[4 * n + e] * sl2 - l2[e >> 1]) : 0.f;
+      }
+    wgmma_wait<0>();
+    reg_fence(y);
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        y[4 * n + e] = x[4 * n + e] * (y[4 * n + e] - dl[e >> 1]) * scale;
+    uint32_t a[BS / 16][4];
+#pragma unroll
+    for (int j = 0; j < BS / 16; ++j) a_frag(a[j], y, j);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BS / 16; ++j) wgmma_rs<1>(dq_acc, a[j], desc_mn<BS>(cK, 0, j), i + j > 0);
+    wgmma_commit();   // dQ runs on into the next tile's scores
+  }
+  wgmma_wait<0>();
+  reg_fence(dq_acc);
+  store_frag(dq + sbase * D, dq_acc, q0 + 64 * wg + 16 * wi, 0, T_len, H * D, g, t);
+}
+
+// --- the wide plan (D = 512): cp.async into a two-stage ring ---------------
+
+// The four warpgroups' parts of a [64 x BS] score tile pair (x, y) summed in
+// a fixed order, through `part` (each thread's fragment of each part).
+template <int NWG, int NS>
+__device__ __forceinline__ void sum_parts(float* part, float (&x)[NS], float (&y)[NS], int wg,
+                                          int tw) {
+  float4* mine = reinterpret_cast<float4*>(part) + (2 * wg * 128 + tw) * (NS / 4);
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j) {
+    mine[j] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+    mine[128 * NS / 4 + j] = make_float4(y[4 * j], y[4 * j + 1], y[4 * j + 2], y[4 * j + 3]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < NS; ++e) x[e] = y[e] = 0.f;
+#pragma unroll 1
+  for (int w = 0; w < NWG; ++w) {
+    const float4* theirs = reinterpret_cast<const float4*>(part) + (2 * w * 128 + tw) * (NS / 4);
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+      const float4 u = theirs[j], z = theirs[128 * NS / 4 + j];
+      x[4 * j] += u.x, x[4 * j + 1] += u.y, x[4 * j + 2] += u.z, x[4 * j + 3] += u.w;
+      y[4 * j] += z.x, y[4 * j + 1] += z.y, y[4 * j + 2] += z.z, y[4 * j + 3] += z.w;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 in bf16, wide plan (D = 512): dQ.  Grid (ceil(T/64), B*H); warpgroup w
+// holds D columns [128 w, 128 w + 128) of dQ and its part of the scores.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(QPlan<D>::NT, 1)
+flash_bwd_q_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int T_len, int H, float scale) {
+  using P = QPlan<D>;
+  constexpr int RES = P::RES, BS = P::BS, NT = P::NT, NS = P::NS;
+  static_assert(P::WIDE, "the wide plan");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdO = sQ + RES * P::CP * 8;
+  unsigned char* ring = smem_raw + 2 * P::RES_TILE;   // [STAGES][K, V]
+  float* sLse = reinterpret_cast<float*>(ring + P::STAGES * P::STAGE);
+  float* sDelta = sLse + RES;
+  float* part = sDelta + RES;
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * RES, rs = H * D;
+  const size_t base = ((size_t)b * T_len * H + h) * D, sbase = (size_t)b * T_len * H + h;
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  const int wi = tw >> 5, lane = tw & 31, g = lane >> 2, t = lane & 3;
+  const float sl2 = scale * kLog2e;
+  const int n_tiles = (T_len + BS - 1) / BS;
+
+  // KV tile i into slot i % STAGES; one commit group each (see K2)
+  auto slot = [&](int i) { return ring + (i % P::STAGES) * P::STAGE; };
+  auto stage = [&](int i) {
+    if (i < n_tiles) {
+      unsigned char* s = slot(i);
+      copy_tile<D, BS, NT>(reinterpret_cast<bf16*>(s), k + base, i * BS, T_len, rs);
+      copy_tile<D, BS, NT>(reinterpret_cast<bf16*>(s + P::ST_TILE), v + base, i * BS, T_len, rs);
+    }
+    cp_async_commit();
+  };
+  copy_tile<D, RES, NT>(sQ, q + base, q0, T_len, rs);
+  copy_tile<D, RES, NT>(sdO, dout + base, q0, T_len, rs);
+  copy_stats<RES, NT>(sLse, lse + sbase, q0, T_len, H);
+  copy_stats<RES, NT>(sDelta, delta + sbase, q0, T_len, H);
+  for (int i = 0; i < P::STAGES - 1; ++i) stage(i);   // the first group carries Q, dO, lse, delta
+
+  const int r_own = 16 * wi + g;   // this thread's Q rows: r_own and r_own + 8
+  float dq_acc[P::ND];             // set by the first tile's wgmma
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<P::STAGES - 2>();
+    fence_async_smem();
+    __syncthreads();   // tile i is here; every thread is done with tile i - 1
+    stage(i + P::STAGES - 1);
+    const bf16* rQ = launder(sQ);
+    const bf16* rdO = launder(sdO);
+    const bf16* cK = reinterpret_cast<const bf16*>(slot(i));
+    const bf16* cV = reinterpret_cast<const bf16*>(slot(i) + P::ST_TILE);
+    const int k0 = i * BS;
+    float x[NS], y[NS];   // this warpgroup's part of S and dP; set by wgmma
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < P::KW; ++ks)
+      wgmma_ss(x, desc_k<RES>(rQ, 0, P::KW * wg + ks), desc_k<BS>(cK, 0, P::KW * wg + ks),
+               ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < P::KW; ++ks)
+      wgmma_ss(y, desc_k<RES>(rdO, 0, P::KW * wg + ks), desc_k<BS>(cV, 0, P::KW * wg + ks),
+               ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(x);
+    reg_fence(y);
+    sum_parts<P::NWG>(part, x, y, wg, tw);
+    // dS in y: element e of 8-column block n is row r_own + 8 (e >> 1),
+    // column (KV row) 8 n + 2 t + (e & 1)
+    const float l2[2] = {sLse[r_own] * kLog2e, sLse[r_own + 8] * kLog2e};
+    const float dl[2] = {sDelta[r_own], sDelta[r_own + 8]};
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * n + 2 * t + (e & 1);
+        const float p = k0 + c < T_len ? ex2(x[4 * n + e] * sl2 - l2[e >> 1]) : 0.f;
+        y[4 * n + e] = p * (y[4 * n + e] - dl[e >> 1]) * scale;
+      }
+    uint32_t a[4];
+    a_frag(a, y, 0);
+    wgmma_fence();
+    wgmma_rs<1>(dq_acc, a, desc_mn<BS>(cK, P::DW / 8 * wg, 0), i > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(dq_acc);
+  }
+  store_frag(dq + base, dq_acc, q0 + 16 * wi, P::DW * wg, T_len, rs, g, t);
+}
+
 template <typename KernelFn>
 cudaError_t allow_smem(KernelFn fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -908,6 +1741,98 @@ int bwd_q_launch(const void* q, const void* k, const void* v, const void* dout, 
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map of a [B, T, H, D] bf16 tensor whose box is one chunk column: 8
+// columns of `rows` rows of one (b, h); rows past T read as zeros.
+bool chunk_map(CUtensorMap* map, const void* base, int B, int T_len, int H, int D, int rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T_len, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)T_len * H * D * 2};
+  const cuuint32_t box[4] = {8, 1, (cuuint32_t)rows, 1}, unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int bwd_kv_wgmma_launch(const void* q, const void* k, const void* v, const void* dout,
+                        const void* lse, const void* delta, void* dk, void* dv, int B, int T_len,
+                        int H, float scale, cudaStream_t stream) {
+  using P = KvPlan<D>;
+  if constexpr (P::WIDE) {   // D = 512: the mma.sync plan, one TF32 pass (see the top)
+    return bwd_kv_launch<bf16, D>(q, k, v, dout, lse, delta, dk, dv, B, T_len, H, scale, stream);
+  } else {
+    if (misaligned({q, k, v, dout, dk, dv})) return (int)cudaErrorMisalignedAddress;
+    const dim3 grid((T_len + P::RES - 1) / P::RES, B * H);
+    CUtensorMap mq, mk, mv, mdo;
+    if (!chunk_map(&mq, q, B, T_len, H, D, P::BS) || !chunk_map(&mk, k, B, T_len, H, D, P::RES) ||
+        !chunk_map(&mv, v, B, T_len, H, D, P::RES) || !chunk_map(&mdo, dout, B, T_len, H, D, P::BS))
+      return (int)cudaErrorInvalidValue;
+    auto fn = flash_bwd_kv_kernel_tma<D>;
+    cudaError_t err = allow_smem(fn, P::smem);
+    if (err != cudaSuccess) return (int)err;
+    fn<<<grid, P::NTB, P::smem, stream>>>(mq, mk, mv, mdo, (const float*)lse,
+                                               (const float*)delta, (bf16*)dk, (bf16*)dv, T_len,
+                                               H, scale);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <int D>
+int bwd_q_wgmma_launch(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dq, int B, int T_len, int H,
+                       float scale, cudaStream_t stream) {
+  using P = QPlan<D>;
+  if (misaligned({q, k, v, dout, dq})) return (int)cudaErrorMisalignedAddress;
+  const dim3 grid((T_len + P::RES - 1) / P::RES, B * H);
+  if constexpr (P::WIDE) {
+    auto fn = flash_bwd_q_kernel_wide<D>;
+    cudaError_t err = allow_smem(fn, P::smem);
+    if (err != cudaSuccess) return (int)err;
+    fn<<<grid, P::NT, P::smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                          (const bf16*)dout, (const float*)lse,
+                                          (const float*)delta, (bf16*)dq, T_len, H, scale);
+  } else {
+    CUtensorMap mq, mk, mv, mdo;
+    if (!chunk_map(&mq, q, B, T_len, H, D, P::RES) || !chunk_map(&mk, k, B, T_len, H, D, P::BS) ||
+        !chunk_map(&mv, v, B, T_len, H, D, P::BS) || !chunk_map(&mdo, dout, B, T_len, H, D, P::RES))
+      return (int)cudaErrorInvalidValue;
+    auto fn = flash_bwd_q_kernel_tma<D>;
+    cudaError_t err = allow_smem(fn, P::smem);
+    if (err != cudaSuccess) return (int)err;
+    fn<<<grid, P::NTB, P::smem, stream>>>(mq, mk, mv, mdo, (const float*)lse,
+                                               (const float*)delta, (bf16*)dq, T_len, H, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Head dims with a compiled plan; the Python wrapper lists the same set.
 #define TID_FOR_EACH_HEAD_DIM(X) X(40) X(64) X(80) X(512)
 
@@ -935,8 +1860,8 @@ int tid_flash_bwd_kv(const void* q, const void* k, const void* v, const void* do
   cudaStream_t s = (cudaStream_t)stream;
 #define TID_CASE(DD)                                                                      \
   case DD:                                                                                \
-    return is_bf16 ? bwd_kv_launch<__nv_bfloat16, DD>(q, k, v, dout, lse, delta, dk, dv, \
-                                                      B, T_len, H, scale, s)              \
+    return is_bf16 ? bwd_kv_wgmma_launch<DD>(q, k, v, dout, lse, delta, dk, dv, B, T_len, \
+                                             H, scale, s)                                 \
                    : bwd_kv_launch<float, DD>(q, k, v, dout, lse, delta, dk, dv, B, T_len, \
                                               H, scale, s);
   switch (D) { TID_FOR_EACH_HEAD_DIM(TID_CASE) }
@@ -950,8 +1875,8 @@ int tid_flash_bwd_q(const void* q, const void* k, const void* v, const void* dou
   cudaStream_t s = (cudaStream_t)stream;
 #define TID_CASE(DD)                                                                    \
   case DD:                                                                              \
-    return is_bf16 ? bwd_q_launch<__nv_bfloat16, DD>(q, k, v, dout, lse, delta, dq, B,  \
-                                                     T_len, H, scale, s)                \
+    return is_bf16 ? bwd_q_wgmma_launch<DD>(q, k, v, dout, lse, delta, dq, B, T_len, H,  \
+                                            scale, s)                                   \
                    : bwd_q_launch<float, DD>(q, k, v, dout, lse, delta, dq, B, T_len, H, \
                                              scale, s);
   switch (D) { TID_FOR_EACH_HEAD_DIM(TID_CASE) }
