@@ -6,7 +6,8 @@ Run from the repository root on a machine with the card and nvcc:
 
     python3 scripts/probe_flash_cuda.py [--report PATH]
     python3 scripts/probe_flash_cuda.py --bf16 [--baseline-cu PATH]
-        [--variant NAME KERNEL OLD NEW] [--quick] [--shapes B,T,H,D;...]
+        [--extra-cu NAME PATH] [--variant NAME KERNEL OLD NEW] [--quick]
+        [--shapes B,T,H,D;...]
         [--deadline S] [--report PATH]
 
 Without ``--bf16`` (the f32 study) it prints, as JSON lines:
@@ -27,28 +28,32 @@ Without ``--bf16`` (the f32 study) it prints, as JSON lines:
    unchanged build is checked against the plain versions.  Variants run in
    turns (a, b, ..., b, a).
 
-With ``--bf16`` it studies the bf16 K2 and K3 of the tree's source, of
-``--baseline-cu`` (another ``flash_attention.cu``, for example an earlier
-commit's, written out with ``git show``) and of each ``--variant`` (the
-tree's source with OLD replaced by NEW inside KERNEL's definition; a NAME
-given more than once takes all its patches), all built at once, and prints:
+With ``--bf16`` it studies the bf16 K1, K2 and K3 of the tree's source,
+of ``--baseline-cu`` (another ``flash_attention.cu``, for example an
+earlier commit's, written out with ``git show``), of each ``--extra-cu``
+(one more such source, by name) and of each ``--variant``
+(the tree's source with OLD replaced by NEW inside KERNEL's definition; a
+NAME given more than once takes all its patches), all built at once, and
+prints:
 
 1. the card's name and power limit, and each build's registers and spills
-   of K2 and K3 (``-Xptxas -v``) with ptxas's notes on ``wgmma``;
-2. every build's K2 and K3 against ``flash_bwd_kv_reference`` and
-   ``flash_bwd_q_reference`` at ragged shapes that cross a batch and a head
-   boundary at every compiled head dim, and at the main paths' bf16
-   shapes: the max abs error against ``chip_smoke.check_flash``'s limit
-   with its floor, 2e-2 x max(1, |ref|), and the errors at the data's scale
-   (``chip_smoke.scaled_errs``) against ``BF16_BWD_NORM_TOL`` and
-   ``BF16_BWD_PEAK_TOL``;
+   of K1, K2 and K3 (``-Xptxas -v``) with ptxas's notes on ``wgmma``;
+2. every build's K1, K2 and K3 against ``flash_fwd_reference``,
+   ``flash_bwd_kv_reference`` and ``flash_bwd_q_reference`` at ragged
+   shapes that cross a batch and a head boundary at every compiled head
+   dim, and at the main paths' bf16 shapes: the max abs error against
+   ``chip_smoke.check_flash``'s limit with its floor, 2e-2 x max(1, |ref|),
+   the errors of o, dK, dV and dQ at the data's scale
+   (``chip_smoke.scaled_errs``) against ``BF16_FWD_NORM_TOL`` /
+   ``BF16_FWD_PEAK_TOL`` and ``BF16_BWD_NORM_TOL`` / ``BF16_BWD_PEAK_TOL``,
+   and lse's absolute error against ``BF16_LSE_TOL``;
 3. unless ``--quick``, at the main paths' shapes (or ``--shapes``), each
-   build's device time of K2 and of K3 (``chip_smoke.device_ms``: medians
+   build's device time of K1, K2 and K3 (``chip_smoke.device_ms``: medians
    of the kernels' own spans) and the host's time to launch each (the mean
    over calls queued behind a device sleep, the ctypes call included), in
    turns (baseline, tree, variants, ..., tree, baseline), with SDPA's
-   backward (dQ, dK, dV together) and the bound (4 and 3 [T x T x D]
-   products at the bf16 peak).
+   forward and backward (dQ, dK, dV together) and the bounds (2, 4 and 3
+   [T x T x D] products at the bf16 peak).
 
 Each patch applies only inside the definition of the kernel it names, so
 that a patch of one kernel cannot change another; a patch whose text is no
@@ -273,7 +278,7 @@ def f32_study(cs, _lib, fa, results: dict) -> bool:
 
 
 def bf16_runner(fns: dict, fa):
-    """(kv, q): K2 and K3 of one build on [B, T, H, D] bf16 tensors."""
+    """(fwd, kv, q): K1, K2 and K3 of one build on [B, T, H, D] bf16 tensors."""
     import torch
 
     from tml_image_editing_defense_torch.ops._lib import stream_ptr
@@ -281,6 +286,14 @@ def bf16_runner(fns: dict, fa):
     def check(err, name):
         if err != 0:
             raise RuntimeError(f"{name}: CUDA error {err}")
+
+    def fwd(q, k, v, *_):
+        b, t, h, d = q.shape
+        o = torch.empty_like(q)
+        lse = torch.empty((b, t, h), dtype=torch.float32, device=q.device)
+        check(fns[K1](q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                      b, t, h, d, 1, 1.0 / math.sqrt(d), stream_ptr(q)), "K1")
+        return o, lse
 
     def kv(q, k, v, do, lse, delta):
         b, t, h, d = q.shape
@@ -298,7 +311,7 @@ def bf16_runner(fns: dict, fa):
                       stream_ptr(q)), "K3")
         return dq
 
-    return kv, q_
+    return fwd, kv, q_
 
 
 def bf16_inputs(fa, shape, gen):
@@ -312,17 +325,20 @@ def bf16_inputs(fa, shape, gen):
 
 
 def bf16_errors(cs, fa, runs: dict, args) -> dict:
-    """Each build's errors of dK, dV and dQ against the plain versions:
-    max abs error (and the limit with its floor), and at the data's scale."""
+    """Each build's errors of o, dK, dV and dQ against the plain versions:
+    max abs error (and the limit with its floor), and at the data's scale;
+    and lse's absolute error."""
     import torch
 
+    o_ref, lse_ref = fa.flash_fwd_reference(*args[:3])
     dk_ref, dv_ref = fa.flash_bwd_kv_reference(*args)
     dq_ref = fa.flash_bwd_q_reference(*args)
-    refs = {"dk": dk_ref, "dv": dv_ref, "dq": dq_ref}
+    refs = {"o": o_ref, "dk": dk_ref, "dv": dv_ref, "dq": dq_ref}
     out = {}
-    for name, (kv, q_) in runs.items():
+    for name, (fwd, kv, q_) in runs.items():
+        o, lse = fwd(*args)
         dk, dv = kv(*args)
-        got = {"dk": dk, "dv": dv, "dq": q_(*args)}
+        got = {"o": o, "dk": dk, "dv": dv, "dq": q_(*args)}
         torch.cuda.synchronize()
         row = {}
         for key, ref in refs.items():
@@ -331,10 +347,23 @@ def bf16_errors(cs, fa, runs: dict, args) -> dict:
             e.update(max_abs=cs.max_err(got[key], ref), ref_peak=ref.float().abs().max().item(),
                      floor_tol=floor_tol)
             e["floor_ok"] = e["max_abs"] <= floor_tol
-            e["scaled_ok"] = e["norm"] <= cs.BF16_BWD_NORM_TOL and e["peak"] <= cs.BF16_BWD_PEAK_TOL
+            norm_tol, peak_tol = ((cs.BF16_FWD_NORM_TOL, cs.BF16_FWD_PEAK_TOL) if key == "o"
+                                  else (cs.BF16_BWD_NORM_TOL, cs.BF16_BWD_PEAK_TOL))
+            e["scaled_ok"] = e["norm"] <= norm_tol and e["peak"] <= peak_tol
             row[key] = e
+        lse_err = cs.max_err(lse, lse_ref)
+        row["lse"] = {"max_abs": lse_err, "floor_ok": lse_err <= 2e-2 * max(
+                          1.0, o_ref.float().abs().max().item()),
+                      "scaled_ok": lse_err <= cs.BF16_LSE_TOL}
         out[name] = row
     return out
+
+
+def sdpa_fwd_ms(cs, args) -> float:
+    import torch.nn.functional as F
+
+    q, k, v = (x.transpose(1, 2).contiguous() for x in args[:3])
+    return cs.cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 5)
 
 
 def sdpa_bwd_ms(cs, args) -> float:
@@ -365,7 +394,7 @@ def host_us(cs, fn, calls: int = 50) -> float:
 
 
 def bf16_study(cs, _lib, fa, args, results: dict) -> bool:
-    """The bf16 study: the tree's K2 and K3 against a baseline and variants."""
+    """The bf16 study: the tree's K1, K2 and K3 against a baseline and variants."""
     import torch
 
     timed = (tuple(tuple(int(n) for n in sh.split(",")) for sh in args.shapes.split(";"))
@@ -375,6 +404,8 @@ def bf16_study(cs, _lib, fa, args, results: dict) -> bool:
     sources, patches = {}, {}
     if args.baseline_cu:
         sources["baseline"] = args.baseline_cu.read_text()
+    for name, path in args.extra_cu:
+        sources[name] = Path(path).read_text()
     for name, kernel, old, new in args.variant:
         patches.setdefault(name, {}).setdefault(kernel, []).append((old, new))
     sources.update({name: patched(src, p) for name, p in patches.items()})
@@ -384,7 +415,7 @@ def bf16_study(cs, _lib, fa, args, results: dict) -> bool:
         for name, (lib, report) in build_all(_lib, sources, Path(tmp)).items():
             runs[name], reports[name] = bf16_runner(bind(lib, fa), fa), report
         for name, report in reports.items():
-            rows = [r for r in cs.ptxas_summary(report) if "bwd" in r[0]]
+            rows = [r for r in cs.ptxas_summary(report) if "bf16" in r[0]]
             # ptxas's notes on wgmma (a serialized pipeline costs its overlap)
             notes = sorted({ln.strip()[:400] for ln in report.splitlines()
                             if "wgmma" in ln.lower() and "Compiling" not in ln})
@@ -410,15 +441,18 @@ def bf16_study(cs, _lib, fa, args, results: dict) -> bool:
             a = bf16_inputs(fa, shape, gen)
             b, t, h, d = shape
             mm = 2.0 * b * h * t * t * d
+            keys = ("fwd", "bwd_kv", "bwd_q")
             row = {"shape": list(shape),
-                   "device_ms": {n: {"bwd_kv": [], "bwd_q": []} for n in order},
-                   "host_us": {n: {"bwd_kv": [], "bwd_q": []} for n in order},
-                   "bound_ms": {"bwd_kv": 4 * mm / cs.H100_BF16_FLOPS * 1e3,
+                   "device_ms": {n: {key: [] for key in keys} for n in order},
+                   "host_us": {n: {key: [] for key in keys} for n in order},
+                   "bound_ms": {"fwd": 2 * mm / cs.H100_BF16_FLOPS * 1e3,
+                                "bwd_kv": 4 * mm / cs.H100_BF16_FLOPS * 1e3,
                                 "bwd_q": 3 * mm / cs.H100_BF16_FLOPS * 1e3},
-                   "sdpa_bwd_ms": sdpa_bwd_ms(cs, a)}
+                   "sdpa_fwd_ms": sdpa_fwd_ms(cs, a), "sdpa_bwd_ms": sdpa_bwd_ms(cs, a)}
             for name in order + order[::-1]:
-                kv, q_ = runs[name]
-                for key, fn, kernel in (("bwd_kv", lambda: kv(*a), K2),
+                fwd, kv, q_ = runs[name]
+                for key, fn, kernel in (("fwd", lambda: fwd(*a), K1),
+                                        ("bwd_kv", lambda: kv(*a), K2),
                                         ("bwd_q", lambda: q_(*a), K3)):
                     row["device_ms"][name][key].append(cs.device_ms(fn, (kernel,), 20)["ms"])
                     row["host_us"][name][key].append(host_us(cs, fn))
@@ -430,8 +464,10 @@ def bf16_study(cs, _lib, fa, args, results: dict) -> bool:
 
 def main(argv) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--bf16", action="store_true", help="study the bf16 K2 and K3")
+    parser.add_argument("--bf16", action="store_true", help="study the bf16 K1, K2 and K3")
     parser.add_argument("--baseline-cu", type=Path, help="bf16: another flash_attention.cu")
+    parser.add_argument("--extra-cu", nargs=2, action="append", default=[],
+                        metavar=("NAME", "PATH"), help="bf16: one more flash_attention.cu")
     parser.add_argument("--variant", nargs=4, action="append", default=[],
                         metavar=("NAME", "KERNEL", "OLD", "NEW"),
                         help="bf16: the tree's source with OLD -> NEW in KERNEL's definition")

@@ -89,7 +89,8 @@ def test_bwd_reference_is_the_autograd_gradient():
 
 def test_dispatch_routes_long_self_attention_to_the_op(monkeypatch):
     """The JAX rule (layers.py:322): self-attention with S >= max(2 chunk,
-    MIN_CHUNKED_SEQ) goes to the flash op; cross-attention (S = 77) and
+    MIN_CHUNKED_SEQ) goes to the flash op at a compiled head dim and to the
+    chunked scan at any other (D = 32); cross-attention (S = 77) and
     shorter sequences take the plain path.  Results equal JAX's dispatch."""
     monkeypatch.setattr(pl, "MIN_CHUNKED_SEQ", 256)
     monkeypatch.setattr(jl, "MIN_CHUNKED_SEQ", 256)
@@ -100,7 +101,9 @@ def test_dispatch_routes_long_self_attention_to_the_op(monkeypatch):
     kv = rng.standard_normal((1, 512, 4, 40)).astype(np.float32)
     ctx = rng.standard_normal((1, 77, 4, 40)).astype(np.float32)
     short = rng.standard_normal((1, 128, 4, 40)).astype(np.float32)
-    cases = [((q, kv, kv), 1), ((q, ctx, ctx), 0), ((short, short, short), 0)]
+    q32, kv32 = (rng.standard_normal((1, 512, 4, 32)).astype(np.float32) for _ in range(2))
+    cases = [((q, kv, kv), 1), ((q, ctx, ctx), 0), ((short, short, short), 0),
+             ((q32, kv32, kv32), 0)]
     for args, routed in cases:
         before = len(calls)
         got = pl.scaled_attention(*(torch.from_numpy(a) for a in args), kv_chunk=128)
@@ -334,6 +337,85 @@ def test_bf16_wgmma_arithmetic_against_pallas_and_reference(shape, bs):
             1.0, w.abs().max().item())
         r = r.float()
         assert (g - r).abs().max().item() <= 2e-2 * max(1.0, r.abs().max().item())
+
+
+def _fwd_bf16_emulated(q, k, v, bk: int):
+    """The bf16 K1 plans' arithmetic for one (b, h): q, k, v [T, D] holding
+    bf16 values.  KV tiles of ``bk`` rows in order (64 at D <= 80, 32 at
+    D = 512; the last one ragged): S in f32 from the bf16 operands, the
+    online softmax in base 2 (m = max S scale log2(e), P = 2^(S scale
+    log2(e) - m), corr = 2^(m_prev - m)), P rounded to bf16 as the operand
+    of P V, l summed from the unrounded P, the accumulator in f32; o = acc /
+    l rounded once to bf16 and lse = m ln 2 + log l."""
+    t, d = q.shape
+    sl2 = torch.tensor(np.float32(1.0 / np.sqrt(d)) * np.float32(np.log2(np.e)),
+                       dtype=torch.float32)
+    m = torch.full((t,), -torch.inf)
+    l = torch.zeros(t)
+    acc = torch.zeros(t, d)
+    for k0 in range(0, k.shape[0], bk):
+        s = q @ k[k0:k0 + bk].T
+        m_new = torch.maximum(m, s.max(1).values * sl2)
+        corr = torch.exp2(m - m_new)                  # 0 at the first tile
+        p = torch.exp2(s * sl2 - m_new[:, None])
+        l = l * corr + p.sum(1)
+        acc = acc * corr[:, None] + _bf16(p) @ v[k0:k0 + bk]
+        m = m_new
+    return _bf16(acc / l[:, None]), m * np.float32(np.log(2.0)) + torch.log(l)
+
+
+#: (shape, KV tile rows): the small plan's 64-row tiles at D = 40 and 64
+#: (T = 1024: two of the Pallas kernel's 512-row blocks), the wide plan's 32
+BF16_FWD_CASES = [((2, 256, 2, 40), 64), ((1, 256, 2, 64), 64), ((1, 1024, 1, 64), 64),
+                  ((1, 128, 1, 512), 32)]
+
+
+@pytest.mark.parametrize("shape,bk", BF16_FWD_CASES,
+                         ids=[f"T{c[0][1]}-D{c[0][-1]}" for c in BF16_FWD_CASES])
+def test_bf16_k1_arithmetic_against_pallas_and_reference(shape, bk):
+    """The bf16 K1 (csrc/flash_attention.cu, ``flash_fwd_kernel_tma`` and
+    ``flash_fwd_kernel_wide``) is meant to round P to bf16 where the Pallas
+    ``_fwd_kernel`` does (``p.astype(v_ref.dtype)``), with f32 scores,
+    statistics and accumulator and o rounded once.  (At D = 512 under one
+    wave of 64-row blocks the launcher keeps the one-pass TF32 ``mma.sync``
+    plan, which rounds P to TF32, finer than this.)  This test pins those
+    rounding points only: it runs ``_fwd_bf16_emulated``, a plain-torch
+    emulation of the plans' arithmetic written here, and no code of the port
+    or of its kernels; the kernels are held against the plain version on
+    the card (``chip_smoke.check_flash``: ``BF16_FWD_NORM_TOL``,
+    ``BF16_FWD_PEAK_TOL``, ``BF16_LSE_TOL``).  The emulation, on bf16
+    inputs made from a seed, against:
+
+    - the Pallas ``_fwd`` in interpret mode on the same inputs: o bit-equal
+      on at least 60 % of its elements (measured: 69-74 %; the Pallas block
+      is 512 rows, so it rescales and rounds P at other points than 64- or
+      32-row tiles, and a P element one rounding step apart moves o by up
+      to one bf16 ulp), o within 2^-7 max(1, |ref|) (measured: at most
+      2^-8), lse within 1e-5 (measured: at most 9.6e-7);
+    - ``flash_fwd_reference`` (dense f32, rounded once): o within 4e-3
+      normwise (measured: 2.2-2.3e-3; the Pallas forward's own 2.3-2.4e-3)
+      and 2^-6 of the peak (measured: at most 6.2e-3), lse within 1e-5."""
+    b, t, h, d = shape
+    rng = np.random.default_rng(sum(shape))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v)
+    got_o, got_lse = torch.zeros(shape), torch.zeros((b, t, h))
+    for bi in range(b):
+        for hi in range(h):
+            got_o[bi, :, hi], got_lse[bi, :, hi] = _fwd_bf16_emulated(
+                *(x[bi, :, hi].float() for x in (q, k, v)), bk)
+    jo, res = pallas_fwd_res(*(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+                               for x in (q, k, v)))
+    jo = torch.from_numpy(np.array(jo.astype(jnp.float32)))
+    jlse = torch.from_numpy(np.array(res[-1])).reshape(b, h, t).permute(0, 2, 1)
+    assert (got_o == jo).float().mean().item() >= 0.6
+    assert (got_o - jo).abs().max().item() <= 2.0 ** -7 * max(1.0, jo.abs().max().item())
+    assert (got_lse - jlse).abs().max().item() <= 1e-5
+    o_ref = o_ref.float()
+    assert ((got_o - o_ref).norm() / o_ref.norm()).item() <= 4e-3
+    assert ((got_o - o_ref).abs().max() / o_ref.abs().max()).item() <= 2.0 ** -6
+    assert (got_lse - lse_ref).abs().max().item() <= 1e-5
 
 
 def test_launch_counters_stay_zero_on_cpu():

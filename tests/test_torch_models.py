@@ -108,16 +108,20 @@ def test_unet_forward_matches_jax(jtiny, t):
 
 def test_unet_long_attention_path_matches_jax(jtiny, monkeypatch):
     """With a kv chunk and the length floor lowered, the port's UNet sends its
-    64-token self-attention through the flash op (plain version on CPU) and
-    JAX through its chunked flash-2 scan: same outputs."""
+    64-token self-attention (head dim 16, outside the kernels' tile plans)
+    through the chunked flash-2 scan, and, with 16 taken into
+    ``KERNEL_HEAD_DIMS``, through the flash op (plain version on CPU); JAX
+    through its chunked flash-2 scan: same outputs either way."""
     import tml_image_editing_defense_tpu.models.layers as jl
 
     monkeypatch.setattr(jl, "MIN_CHUNKED_SEQ", 16)
     monkeypatch.setattr(port_layers, "MIN_CHUNKED_SEQ", 16)
-    calls = []
-    real = port_layers.flash_attention
+    calls = {"flash": [], "chunked": []}
+    real_flash, real_chunked = port_layers.flash_attention, port_layers._chunked_attention_cv
     monkeypatch.setattr(port_layers, "flash_attention",
-                        lambda *a: calls.append(a[0].shape) or real(*a))
+                        lambda *a: calls["flash"].append(a[0].shape) or real_flash(*a))
+    monkeypatch.setattr(port_layers, "_chunked_attention_cv",
+                        lambda *a: calls["chunked"].append(a[0].shape) or real_chunked(*a))
     params = jtiny.params["unet"]
     rng = np.random.default_rng(3)
     sample = rng.standard_normal((1, 8, 8, 4)).astype(np.float32)
@@ -126,10 +130,14 @@ def test_unet_long_attention_path_matches_jax(jtiny, monkeypatch):
     want = np.asarray(module.apply({"params": params}, sample, jnp.asarray(123), ctx))
     unet = UNet2DCondition(dataclasses.replace(TINY_UNET, attn_kv_chunk=8))
     unet.load_state_dict(from_jax_params(params, "unet"))
-    with torch.no_grad():
-        got = unet(nchw(sample), 123, torch.from_numpy(ctx))
-    assert calls and all(s[1] == 64 for s in calls), calls
-    np.testing.assert_allclose(nhwc(got), want, **TOL)
+    for route, head_dims in (("chunked", port_layers.KERNEL_HEAD_DIMS),
+                             ("flash", port_layers.KERNEL_HEAD_DIMS + (16,))):
+        monkeypatch.setattr(port_layers, "KERNEL_HEAD_DIMS", head_dims)
+        with torch.no_grad():
+            got = unet(nchw(sample), 123, torch.from_numpy(ctx))
+        assert calls[route] and all(s[1] == 64 for s in calls[route]), calls
+        np.testing.assert_allclose(nhwc(got), want, **TOL)
+    assert len(calls["flash"]) == len(calls["chunked"]), calls
 
 
 def test_vae_encode_decode_matches_jax(jtiny):

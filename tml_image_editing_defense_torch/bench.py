@@ -70,6 +70,7 @@ from tml_image_editing_defense_torch.core.rng import make_noise_pool  # noqa: E4
 from tml_image_editing_defense_torch.core.samplers import LCMSampler  # noqa: E402
 from tml_image_editing_defense_torch.models import layers  # noqa: E402
 from tml_image_editing_defense_torch.models.model_zoo import build_model  # noqa: E402
+from tml_image_editing_defense_torch.models.vae import SD_VAE  # noqa: E402
 from tml_image_editing_defense_torch.ops import flash_attention, pgd_kernels  # noqa: E402
 from tml_image_editing_defense_torch.utils import flops  # noqa: E402
 from tml_image_editing_defense_torch.utils.device import resolve_device  # noqa: E402
@@ -77,7 +78,8 @@ from tml_image_editing_defense_torch.utils.profiling import measure_seed, sync  
 
 IMAGE_SIZE = 512
 #: the training builds' chunk (bench.py:171, :323): self-attention over at
-#: least max(2 x 512, layers.MIN_CHUNKED_SEQ) tokens runs K1-K3
+#: least max(2 x 512, layers.MIN_CHUNKED_SEQ) tokens at a compiled head dim
+#: runs K1-K3 (``layers.attention_route``)
 ATTN_KV_CHUNK = 512
 #: the encoder attack (bench.py:181-185): 200 steps, batch 1 then 8
 ENC_PRESET = dict(norm_type="linf", step_size=0.006, eps=0.1)
@@ -187,31 +189,37 @@ def step_draws(cfg: TrainConfig, plan, data, i: int):
 # --------------------------------------------------------------------------
 
 
-def _long(tokens: int) -> bool:
-    """Whether a self-attention over ``tokens`` tokens runs K1-K3 in a build
-    with the chunk (``layers.scaled_attention``'s floor)."""
-    return tokens >= max(2 * ATTN_KV_CHUNK, layers.MIN_CHUNKED_SEQ)
+def _long(tokens: int, head_dim: int) -> bool:
+    """Whether a self-attention over ``tokens`` tokens at ``head_dim`` runs
+    K1-K3 in a build with the chunk (``layers.attention_route``)."""
+    return layers.attention_route((1, tokens, 1, head_dim), tokens, ATTN_KV_CHUNK) == "flash"
 
 
 def unet_long_attentions(unet_cfg, image_size: int) -> int:
     """Self-attentions of one UNet call that go to K1 at ``image_size``: at
-    every level whose token count reaches the flash path's floor, a level
+    every level whose token count and head dim take the flash route, a level
     with attention has ``layers_per_block`` transformers down and one more
     up, each ``transformer_layers_per_block`` layers deep; the mid block
     adds the last level's."""
     side, levels = image_size // 8, len(unet_cfg.block_out_channels)
+
+    def long_at(i):
+        head_dim = unet_cfg.block_out_channels[i] // unet_cfg.num_attention_heads[i]
+        return _long((side >> i) ** 2, head_dim)
+
     count = sum((2 * unet_cfg.layers_per_block + 1) * unet_cfg.transformer_layers_per_block[i]
                 for i in range(levels)
-                if unet_cfg.cross_attention_blocks[i] and _long((side >> i) ** 2))
-    if _long((side >> (levels - 1)) ** 2):
+                if unet_cfg.cross_attention_blocks[i] and long_at(i))
+    if long_at(levels - 1):
         count += unet_cfg.transformer_layers_per_block[-1]
     return count
 
 
 def vae_long_attentions(image_size: int) -> int:
-    """K1-K3 calls of one VAE encode or decode: its mid-block attention over
-    the latent's tokens, where that reaches the floor."""
-    return int(_long((image_size // 8) ** 2))
+    """K1-K3 calls of one VAE encode or decode: its mid-block attention (one
+    head as wide as the last level) over the latent's tokens, where that
+    takes the flash route."""
+    return int(_long((image_size // 8) ** 2, SD_VAE.block_out_channels[-1]))
 
 
 def pgd_launches(unet_cfg, cfg, unet_steps: int) -> dict:

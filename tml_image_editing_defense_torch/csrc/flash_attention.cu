@@ -23,10 +23,10 @@
 // writes and re-reads a [B*H, T, T] f32 tensor per layer, 1 GB at the UNet
 // shape): each tile of S / P / dS lives in registers and shared memory only.
 //
-// K1, and K2 and K3 in f32, run their products -- S = QK^T and O += P V in
+// K1, K2 and K3 in f32 run their products -- S = QK^T and O += P V in
 // K1; S = QK^T, dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K in K2
 // and K3 -- on the tensor cores with mma.sync.m16n8k8 in TF32, so they are
-// bound by operations at the tensor cores' TF32 rate.  K2 and K3 in bf16
+// bound by operations at the tensor cores' TF32 rate.  In bf16 all three
 // run them on wgmma at bf16's rate instead (below), but for K2 at D = 512.
 //  - f32 inputs: "3xTF32".  Each operand x is split in registers, as its
 //    fragment is loaded, into hi = tf32(x), rounded to nearest with ties
@@ -38,8 +38,9 @@
 //    is f32-accurate at a third of the 495 TFLOP/s TF32 rate, 165 TFLOP/s,
 //    2.5x the CUDA cores'.  Shared memory holds each tile once, as the
 //    input type.
-//  - bf16 inputs to these plans (K1; K2 at D = 512): a bf16 value is exact
-//    in TF32, so one pass; P and dS round to TF32's 10 mantissa bits, finer
+//  - bf16 inputs to these plans (K2 at D = 512, K1 at D = 512 under one
+//    wave of blocks): a bf16 value is exact in
+//    TF32, so one pass; P and dS round to TF32's 10 mantissa bits, finer
 //    than the bf16 output's 8.  The pass count is a compile-time parameter
 //    of one code path.
 //  - mma.sync, not wgmma, in f32: wgmma takes TF32 operands only K-major,
@@ -63,7 +64,7 @@
 //    and slot t+4 for column 2t+1, and the B operand is read from rows 2t,
 //    2t+1 to match.
 //
-// K1's tile plans (FwdPlan), reckoned from shared memory (227 KB a block)
+// K1's f32 tile plans (FwdPlan), reckoned from shared memory (227 KB a block)
 // and registers (65,536 an SM, 255 a thread).  The Q tile arrives in a ring
 // slot and goes to registers as A fragments split once (hi and lo), so its
 // shared memory joins the ring; the online softmax keeps an f32 running max
@@ -156,8 +157,42 @@
 //    64-row K and V tiles from shared memory for every 16-row Q tile; it
 //    took 7.1-7.4 ms at [8, 4096, 1, 512] against this plan's 6.1-6.3
 //    (NVIDIA H100 80GB HBM3, 700 W; scripts/probe_flash_cuda.py --bf16).
+//
+// K1's bf16 plans (FwdWgPlan), on wgmma bf16 -> f32 with the pieces of K2/K3's
+// (the chunk-column layout, the TMA ring, setmaxnreg).  As the Pallas
+// _fwd_kernel: S in f32, the online softmax's running max and sum in f32, P
+// rounded to bf16 only as P V's A operand, an f32 accumulator, o rounded
+// once, lse = m + log l.  The softmax runs in base 2 on the accumulator
+// layout (the row's max and sum over its 4 lanes by shuffles, 2^x by
+// ex2.approx.ftz), and O is rescaled in registers.
+//  - D <= 80 (flash_fwd_kernel_tma): a block of three warpgroups.  Two
+//    consumers each own 64 of the block's 128 Q rows, loaded once by TMA and
+//    held as A fragments in registers; the producer warp keeps 64-row K and
+//    V tiles coming by TMA into a four-stage mbarrier ring.  S = Q K^T is
+//    m64n64k16 with K K-major, ceil(D / 16) k-steps (D = 40 pads its third
+//    with a zero chunk); P goes from the accumulator to bf16 A fragments in
+//    registers and O += P V is m64nDk16 with V MN-major, four k-steps.  The
+//    next tile's S is issued before this tile's P V, so the softmax of one
+//    tile runs while the other's products do; a slot is released once its
+//    P V is done.  KV rows past T are masked; Q rows past T arrive as zeros
+//    and are not written.  Shared memory: 60, 80 and 100 KB at D = 40, 64,
+//    80; one block an SM; grid ceil(T / 128) x B*H (640 blocks at
+//    [2, 4096, 10, 64]).
+//  - D = 512 (flash_fwd_kernel_wide): four warpgroups share 64 Q rows,
+//    resident in shared memory; warpgroup w holds O's columns [128 w,
+//    128 w + 128) in f32 (64 registers a thread) and computes S over its
+//    part of D (m64n32k16, A and B from shared memory, 8 k-steps); the four
+//    parts are summed through shared memory in a fixed order, so every
+//    warpgroup runs the same softmax on the same sums and adds its columns
+//    of P V (m64n128k16, P from registers, two k-steps).  K and V tiles of
+//    32 rows (a 16-row tile would make the score products read twice the
+//    bytes of shared memory for each product) arrive by cp.async in a
+//    two-stage ring: 64 KB of Q, 128 KB of ring, 32 KB of parts.  Where the
+//    64-row blocks would not fill the card once (B*H*ceil(T / 64) under the
+//    SM count, as at [1, 4096, 1, 512]), the launcher takes the f32 plans'
+//    32-row mma.sync plan in one TF32 pass instead (fwd_wide_plan).
 // Later work: sharing the streamed tiles between the blocks of a cluster
-// (TMA multicast), wgmma for the bf16 K1.
+// (TMA multicast).
 
 #include <cuda.h>   // CUtensorMap; its encoder is reached through the runtime, no -lcuda
 #include <cuda_bf16.h>
@@ -991,6 +1026,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D[64 x 32] += A B, A and B from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // D[64 x 64] += A B, A and B from shared memory, both K-major.
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
                                          int scale_d) {
@@ -1682,6 +1731,331 @@ flash_bwd_q_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_frag(dq + base, dq_acc, q0 + 16 * wi, P::DW * wg, T_len, rs, g, t);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 K1 on wgmma (sm_90a); see the note at the top for the plans.
+// ---------------------------------------------------------------------------
+
+// The bf16 plans of K1 for head dim D.
+template <int D> struct FwdWgPlan {
+  static constexpr bool WIDE = D > 128;
+  static constexpr int NWG = WIDE ? 4 : 2;                // consumer warpgroups
+  static constexpr int NT = 128 * NWG;                    // their threads
+  static constexpr int NTB = NT + (WIDE ? 0 : 128);       // small: and a producer warpgroup
+  static constexpr int RES = WIDE ? 64 : 64 * NWG;        // Q rows a block
+  static constexpr int BS = WIDE ? 32 : 64;               // KV rows a streamed tile
+  static constexpr int STAGES = WIDE ? 2 : 4;             // the ring's stages
+  static constexpr int CH = D / 8, KS = (CH + 1) / 2;     // chunks of a row, k-steps over D
+  static constexpr int CP = 2 * KS;                       // chunk columns kept (D = 40: one zero)
+  static constexpr int DW = WIDE ? D / NWG : D;           // O columns a warpgroup
+  static constexpr int KW = WIDE ? DW / 16 : KS;          // k-steps of a warpgroup's scores
+  static constexpr int NS = BS / 2, ND = DW / 2;          // accumulator registers: S, O
+  static constexpr int RES_TILE = RES * CP * 16, ST_TILE = BS * CP * 16;   // bytes
+  static constexpr int STAGE = 2 * ST_TILE;               // a K and a V tile
+  static constexpr int PART = WIDE ? NWG * 128 * NS * 4 : 0;       // wide: partial scores
+  static constexpr int BARS = WIDE ? 0 : 8 * (2 * STAGES + 1);     // small: the ring's mbarriers
+  static constexpr size_t smem = RES_TILE + STAGES * (size_t)STAGE + PART + BARS;
+  static_assert(D % 8 == 0 && (WIDE ? DW % 16 == 0 : DW <= 256), "whole chunks and k-steps");
+  static_assert(RES <= 256 && BS <= 256 && BS % 16 == 0, "TMA boxes; whole k-steps of P V");
+  static_assert(smem <= 232448, "a block's shared memory");
+};
+
+// One step of the online softmax on a warpgroup's [64 x 2 NS] score tile x
+// (rows 16 wi + g and + 8 of this thread; element e of 8-column block n is
+// column 8 n + 2 t + (e & 1)), in base 2 (m is max S scale log2(e)): the
+// columns from `valid` on are masked, m and this thread's part of l are
+// updated, corr = 2^(m_prev - m) returned, and x becomes P.
+template <int NS>
+__device__ __forceinline__ void online_softmax(float (&x)[NS], float (&m)[2], float (&l)[2],
+                                               float (&corr)[2], int valid, float sl2, int t) {
+  if (valid < 2 * NS) {
+#pragma unroll
+    for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * n + 2 * t + (e & 1) >= valid) x[4 * n + e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], x[4 * n + e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], group_max<4>(mx[r]) * sl2);   // finite: column 0 is valid
+    corr[r] = ex2(m[r] - mn);                                    // 0 at the first tile
+    m[r] = mn;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int n = 0; n < NS / 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(x[4 * n + e], sl2, -m[e >> 1]));
+      l[e >> 1] += p;
+      x[4 * n + e] = p;
+    }
+}
+
+// o = O / l rounded once to bf16 and (writer) lse = m ln 2 + log l for a
+// warpgroup's accumulator of rows r0 + g, + 8 and columns [c0, c0 + 2 ND).
+template <int ND>
+__device__ __forceinline__ void fwd_epilogue(bf16* o, float* lse, float (&acc)[ND],
+                                             const float (&m)[2], const float (&l)[2], int r0,
+                                             int c0, int T_len, int H, int rs, bool writer,
+                                             int g, int t) {
+  constexpr float kLn2 = 0.6931471805599453f;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = group_sum<4>(l[r]);
+    const int row = r0 + g + 8 * r;
+    if (writer && t == 0 && row < T_len) lse[(size_t)row * H] = m[r] * kLn2 + logf(lr);
+    inv[r] = 1.f / lr;
+  }
+#pragma unroll
+  for (int n = 0; n < ND / 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[4 * n + e] *= inv[e >> 1];
+  store_frag(o, acc, r0, c0, T_len, rs, g, t);
+}
+
+// One KV tile i of the small plan, for one consumer warpgroup, entered with
+// P_i in pa (bf16 A fragments), its rescale factor in corr and no product
+// in flight: (NEXT) S_{i+1} = Q K_{i+1}^T is issued into x, O is rescaled
+// and O += P_i V_i issued; S_{i+1}'s softmax runs while that product does;
+// then slot i goes back and P_{i+1} goes to pa.  Every product is waited
+// for inside, so that ptxas matches each wait to its products: a P V left
+// in flight across the loop made it serialize wgmma (C7514).
+template <int D, bool NEXT>
+__device__ __forceinline__ void
+fwd_tma_tile(float (&x)[FwdWgPlan<D>::NS], uint32_t (&pa)[FwdWgPlan<D>::BS / 16][4],
+             float (&acc)[FwdWgPlan<D>::ND], float (&m)[2], float (&l)[2], float (&corr)[2],
+             const uint32_t (&qa)[FwdWgPlan<D>::KS][4], unsigned char* ring, const Ring& bar,
+             int i, int T_len, float sl2, int lane, int t) {
+  using P = FwdWgPlan<D>;
+  constexpr int BS = P::BS, ST = P::STAGES;
+  if constexpr (NEXT) {
+    mbar_wait(bar.full + (i + 1) % ST, ((i + 1) / ST) & 1);
+    const bf16* cK = reinterpret_cast<const bf16*>(ring + ((i + 1) % ST) * P::STAGE);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < P::KS; ++ks) wgmma_rs<0>(x, qa[ks], desc_k<BS>(cK, 0, ks), ks > 0);
+    wgmma_commit();
+  }
+  if (i > 0) {
+#pragma unroll
+    for (int n = 0; n < P::ND / 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * n + e] *= corr[e >> 1];
+  }
+  const bf16* cV = reinterpret_cast<const bf16*>(ring + (i % ST) * P::STAGE + P::ST_TILE);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BS / 16; ++j) wgmma_rs<1>(acc, pa[j], desc_mn<BS>(cV, 0, j), i + j > 0);
+  wgmma_commit();
+  if constexpr (NEXT) {
+    wgmma_wait<1>();   // S of tile i + 1 is here; P V of tile i runs on
+    reg_fence(x);
+    online_softmax(x, m, l, corr, T_len - (i + 1) * BS, sl2, t);
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+  if constexpr (NEXT) {
+    if (lane == 0) mbar_arrive(bar.empty + i % ST);
+#pragma unroll
+    for (int j = 0; j < BS / 16; ++j) a_frag(pa[j], x, j);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1 in bf16, small plan (D <= 80): o, lse.  Grid (ceil(T/RES), B*H); Q
+// resident (TMA, then A fragments in registers), K and V streamed by the
+// producer warp.  Warpgroup w: Q rows [64 w, 64 w + 64).  Tile i's
+// O = O corr + P V runs while tile i + 1's S = Q K^T is issued and its
+// softmax computed.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(FwdWgPlan<D>::NTB, 1)
+flash_fwd_kernel_tma(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int T_len, int H, float scale) {
+  using P = FwdWgPlan<D>;
+  constexpr int RES = P::RES, BS = P::BS, NT = P::NT, NS = P::NS, ST = P::STAGES;
+  extern __shared__ __align__(128) unsigned char smem_tma[];   // TMA: 128-byte aligned
+  bf16* sQ = reinterpret_cast<bf16*>(smem_tma);
+  unsigned char* ring = smem_tma + P::RES_TILE;   // [STAGES][K, V]
+  const Ring bar = ring_init<ST>(ring + ST * P::STAGE, 1, NT / 32);
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * RES;
+  const size_t sbase = (size_t)b * T_len * H + h;
+  const int n_tiles = (T_len + BS - 1) / BS;
+  auto slot = [&](int i) { return ring + (i % ST) * P::STAGE; };
+  if constexpr (P::CP != P::CH) {   // the zero chunk that pads D to whole k-steps
+    zero_chunk<RES, P::NTB>(sQ, P::CH);
+    for (int i = 0; i < ST; ++i) {
+      zero_chunk<BS, P::NTB>(reinterpret_cast<bf16*>(slot(i)), P::CH);
+      zero_chunk<BS, P::NTB>(reinterpret_cast<bf16*>(slot(i) + P::ST_TILE), P::CH);
+    }
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  if (threadIdx.x >= NT) {   // the producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<40>();
+    if (threadIdx.x != NT) return;
+    mbar_arrive_tx(bar.res, P::CH * RES * 16);
+    for (int c = 0; c < P::CH; ++c) tma_chunk(sQ + c * RES * 8, &map_q, bar.res, c, h, q0, b);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % ST;
+      if (j >= ST) mbar_wait(bar.empty + s, (j / ST + 1) & 1);
+      bf16* cK = reinterpret_cast<bf16*>(slot(j));
+      bf16* cV = reinterpret_cast<bf16*>(slot(j) + P::ST_TILE);
+      mbar_arrive_tx(bar.full + s, 2 * P::CH * BS * 16);
+      for (int c = 0; c < P::CH; ++c) {
+        tma_chunk(cK + c * BS * 8, &map_k, bar.full + s, c, h, j * BS, b);
+        tma_chunk(cV + c * BS * 8, &map_v, bar.full + s, c, h, j * BS, b);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();   // the consumers take what the producer gave up
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  const int wi = tw >> 5, lane = tw & 31, g = lane >> 2, t = lane & 3;
+  const float sl2 = scale * kLog2e;
+  mbar_wait(bar.res, 0);
+  uint32_t qa[P::KS][4];   // this warp's 16 Q rows as A
+  load_a<RES>(qa, sQ, 64 * wg + 16 * wi, g, t);
+  float x[NS], acc[P::ND];   // S (then P) of a tile; O, set by the first P V
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+  mbar_wait(bar.full, 0);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < P::KS; ++ks)
+    wgmma_rs<0>(x, qa[ks], desc_k<BS>(reinterpret_cast<const bf16*>(slot(0)), 0, ks), ks > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(x);
+  online_softmax(x, m, l, corr, T_len, sl2, t);
+  uint32_t pa[BS / 16][4];   // P as A, rounded to bf16
+#pragma unroll
+  for (int j = 0; j < BS / 16; ++j) a_frag(pa[j], x, j);
+  for (int i = 0; i + 1 < n_tiles; ++i)
+    fwd_tma_tile<D, true>(x, pa, acc, m, l, corr, qa, ring, bar, i, T_len, sl2, lane, t);
+  fwd_tma_tile<D, false>(x, pa, acc, m, l, corr, qa, ring, bar, n_tiles - 1, T_len, sl2, lane, t);
+  fwd_epilogue(o + sbase * D, lse + sbase, acc, m, l, q0 + 64 * wg + 16 * wi, 0, T_len, H, H * D,
+               true, g, t);
+}
+
+// The four warpgroups' parts of a [64 x 2 NS] score tile summed in a fixed
+// order, through `part` (each thread's fragment of each part), so that every
+// warpgroup holds the same sums.
+template <int NWG, int NS>
+__device__ __forceinline__ void sum_parts(float* part, float (&x)[NS], int wg, int tw) {
+  float4* base = reinterpret_cast<float4*>(part);
+#pragma unroll
+  for (int j = 0; j < NS / 4; ++j)
+    base[(wg * (NS / 4) + j) * 128 + tw] =
+        make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+  __syncthreads();
+#pragma unroll
+  for (int e = 0; e < NS; ++e) x[e] = 0.f;
+#pragma unroll 1
+  for (int w = 0; w < NWG; ++w)
+#pragma unroll
+    for (int j = 0; j < NS / 4; ++j) {
+      const float4 u = base[(w * (NS / 4) + j) * 128 + tw];
+      x[4 * j] += u.x, x[4 * j + 1] += u.y, x[4 * j + 2] += u.z, x[4 * j + 3] += u.w;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K1 in bf16, wide plan (D = 512): o, lse.  Grid (ceil(T/64), B*H); the
+// four warpgroups share 64 Q rows (resident in shared memory), warpgroup w
+// holds O's columns [128 w, 128 w + 128) and computes S over them; the parts
+// are summed, every warpgroup runs the same softmax on the sums and adds its
+// columns of P V.  K and V tiles of 32 rows arrive by cp.async in a
+// two-stage ring.
+// ---------------------------------------------------------------------------
+template <int D>
+__global__ void __launch_bounds__(FwdWgPlan<D>::NT, 1)
+flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse, int T_len, int H, float scale) {
+  using P = FwdWgPlan<D>;
+  constexpr int RES = P::RES, BS = P::BS, NT = P::NT, NS = P::NS;
+  static_assert(P::WIDE && P::STAGES == 2, "the wide plan");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* ring = smem_raw + P::RES_TILE;   // [STAGES][K, V]
+  float* part = reinterpret_cast<float*>(ring + P::STAGES * P::STAGE);
+
+  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
+  const int q0 = blockIdx.x * RES, rs = H * D;
+  const size_t sbase = (size_t)b * T_len * H + h, base = sbase * D;
+  const int wg = threadIdx.x >> 7, tw = threadIdx.x & 127;
+  const int wi = tw >> 5, lane = tw & 31, g = lane >> 2, t = lane & 3;
+  const float sl2 = scale * kLog2e;
+  const int n_tiles = (T_len + BS - 1) / BS;
+
+  // KV tile i into slot i & 1; one commit group each (see K2)
+  auto slot = [&](int i) { return ring + (i & 1) * P::STAGE; };
+  auto stage = [&](int i) {
+    if (i < n_tiles) {
+      unsigned char* s = slot(i);
+      copy_tile<D, BS, NT>(reinterpret_cast<bf16*>(s), k + base, i * BS, T_len, rs);
+      copy_tile<D, BS, NT>(reinterpret_cast<bf16*>(s + P::ST_TILE), v + base, i * BS, T_len, rs);
+    }
+    cp_async_commit();
+  };
+  copy_tile<D, RES, NT>(sQ, q + base, q0, T_len, rs);
+  stage(0);   // the first group carries Q
+
+  float acc[P::ND];   // set by the first tile's P V
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();   // tile i is here; every thread is done with tile i - 1
+    stage(i + 1);
+    const bf16* rQ = launder(sQ);
+    const bf16* cK = reinterpret_cast<const bf16*>(slot(i));
+    const bf16* cV = reinterpret_cast<const bf16*>(slot(i) + P::ST_TILE);
+    float x[NS];   // this warpgroup's part of S; set by wgmma
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < P::KW; ++ks)
+      wgmma_ss(x, desc_k<RES>(rQ, 0, P::KW * wg + ks), desc_k<BS>(cK, 0, P::KW * wg + ks),
+               ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(x);
+    sum_parts<P::NWG>(part, x, wg, tw);
+    float corr[2];
+    online_softmax(x, m, l, corr, T_len - i * BS, sl2, t);
+    if (i > 0) {
+#pragma unroll
+      for (int n = 0; n < P::ND / 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * n + e] *= corr[e >> 1];
+    }
+    uint32_t pa[BS / 16][4];
+#pragma unroll
+    for (int j = 0; j < BS / 16; ++j) a_frag(pa[j], x, j);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BS / 16; ++j)
+      wgmma_rs<1>(acc, pa[j], desc_mn<BS>(cV, P::DW / 8 * wg, j), i + j > 0);
+    wgmma_commit();
+    wgmma_wait<0>();   // the slot is refilled after the next barrier
+    reg_fence(acc);
+  }
+  fwd_epilogue(o + base, lse + sbase, acc, m, l, q0 + 16 * wi, P::DW * wg, T_len, H, rs, wg == 0,
+               g, t);
+}
+
 template <typename KernelFn>
 cudaError_t allow_smem(KernelFn fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1833,6 +2207,57 @@ int bwd_q_wgmma_launch(const void* q, const void* k, const void* v, const void* 
   return (int)cudaGetLastError();
 }
 
+// The card's SM count, read once.
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 0;
+    return count;
+  }();
+  return n;
+}
+
+// Whether bf16 K1 at D = 512 takes the wide wgmma plan: where its 64-row Q
+// tiles give at least one block an SM.  Under one wave the 32-row mma.sync
+// plan, with twice the blocks, is faster: at [1, 4096, 1, 512] (64 blocks)
+// 0.426 ms against 0.577-0.585, while at [8, 4096, 1, 512] (512 blocks) the
+// wide plan takes 2.437-2.453 ms against 3.366 (NVIDIA H100 80GB HBM3,
+// 700 W; scripts/probe_flash_cuda.py --bf16 against the earlier source).
+bool
+fwd_wide_plan(int B, int T_len, int H) {
+  return (long long)B * H * ((T_len + 63) / 64) >= sm_count();
+}
+
+template <int D>
+int fwd_wgmma_launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+                     int T_len, int H, float scale, cudaStream_t stream) {
+  using P = FwdWgPlan<D>;
+  if (misaligned({q, k, v, o})) return (int)cudaErrorMisalignedAddress;
+  const dim3 grid((T_len + P::RES - 1) / P::RES, B * H);
+  if constexpr (P::WIDE) {
+    static_assert(P::RES == 64, "fwd_wide_plan counts 64-row blocks");
+    if (!fwd_wide_plan(B, T_len, H))
+      return fwd_launch<bf16, D>(q, k, v, o, lse, B, T_len, H, scale, stream);
+    auto fn = flash_fwd_kernel_wide<D>;
+    cudaError_t err = allow_smem(fn, P::smem);
+    if (err != cudaSuccess) return (int)err;
+    fn<<<grid, P::NT, P::smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                          (bf16*)o, (float*)lse, T_len, H, scale);
+  } else {
+    CUtensorMap mq, mk, mv;
+    if (!chunk_map(&mq, q, B, T_len, H, D, P::RES) || !chunk_map(&mk, k, B, T_len, H, D, P::BS) ||
+        !chunk_map(&mv, v, B, T_len, H, D, P::BS))
+      return (int)cudaErrorInvalidValue;
+    auto fn = flash_fwd_kernel_tma<D>;
+    cudaError_t err = allow_smem(fn, P::smem);
+    if (err != cudaSuccess) return (int)err;
+    fn<<<grid, P::NTB, P::smem, stream>>>(mq, mk, mv, (bf16*)o, (float*)lse, T_len, H, scale);
+  }
+  return (int)cudaGetLastError();
+}
+
 // Head dims with a compiled plan; the Python wrapper lists the same set.
 #define TID_FOR_EACH_HEAD_DIM(X) X(40) X(64) X(80) X(512)
 
@@ -1847,7 +2272,7 @@ int tid_flash_fwd(const void* q, const void* k, const void* v, void* o, void* ls
   cudaStream_t s = (cudaStream_t)stream;
 #define TID_CASE(DD)                                                                        \
   case DD:                                                                                  \
-    return is_bf16 ? fwd_launch<__nv_bfloat16, DD>(q, k, v, o, lse, B, T_len, H, scale, s) \
+    return is_bf16 ? fwd_wgmma_launch<DD>(q, k, v, o, lse, B, T_len, H, scale, s) \
                    : fwd_launch<float, DD>(q, k, v, o, lse, B, T_len, H, scale, s);
   switch (D) { TID_FOR_EACH_HEAD_DIM(TID_CASE) }
 #undef TID_CASE

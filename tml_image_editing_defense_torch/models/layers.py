@@ -4,12 +4,15 @@ Submodule names are the diffusers state-dict names (``resnets.0``,
 ``attn1``, ``to_q``, ``to_out.0``, ``time_emb_proj`` ...), so weights
 converted from the JAX package load with ``load_state_dict(strict=True)``.
 
-Attention dispatch (:func:`scaled_attention`) keeps the JAX rule: a long
-self-attention (S >= max(2 * kv_chunk, MIN_CHUNKED_SEQ), T == S, no mask)
-goes to the flash-attention kernels in ``ops/flash_attention.py``; every
-other call (cross-attention at S = 77, the 32x32 level at T = 1024) is plain
-``softmax(QK^T / sqrt(d)) V`` in torch, the counterpart of XLA's
-``jax.nn.dot_product_attention``.
+Attention dispatch (:func:`scaled_attention`, by the rule of
+:func:`attention_route`) keeps the JAX floor: a long attention (S >=
+max(2 * kv_chunk, MIN_CHUNKED_SEQ)) goes to the flash-attention kernels in
+``ops/flash_attention.py`` when it is a self-attention at a head dim they
+are compiled for, and to the chunked online-softmax scan with its flash-2
+backward (:func:`_chunked_attention_cv`, the JAX package's default long
+attention) at any other; every other call (cross-attention at S = 77, the
+32x32 level at T = 1024) is plain ``softmax(QK^T / sqrt(d)) V`` in torch,
+the counterpart of XLA's ``jax.nn.dot_product_attention``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tml_image_editing_defense_torch.ops.flash_attention import flash_attention
+from tml_image_editing_defense_torch.ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -85,12 +88,125 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return torch.einsum("bhts,bshd->bthd", torch.softmax(s, dim=-1), v)
 
 
+def _kv_chunks(q, k, v, kv_chunk: int):
+    """The KV chunks of ``kv_chunk`` rows, the ragged tail padded, each with
+    its logits Q K_c^T / sqrt(D): computed in the input dtype, then taken to
+    f32, the padded columns at -1e30.  Yields (k_c, v_c, logits)."""
+    s = k.shape[1]
+    n = -(-s // kv_chunk)
+    pad = n * kv_chunk - s
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    cols = torch.arange(kv_chunk, device=q.device)
+    for idx in range(n):
+        kcb = k[:, idx * kv_chunk:(idx + 1) * kv_chunk]
+        vcb = v[:, idx * kv_chunk:(idx + 1) * kv_chunk]
+        logits = torch.einsum("bthd,bchd->bthc", q, kcb).float() * scale
+        yield kcb, vcb, torch.where(idx * kv_chunk + cols < s, logits, -1e30)
+
+
+def _chunk_scan(q, k, v, kv_chunk: int):
+    """The online-softmax scan over KV chunks (JAX ``layers._chunk_scan``),
+    P rounded to V's dtype for P V.  Returns the final f32 ``(m, l, acc)``;
+    the [T, S] score matrix is never built, only one [B, T, H, kv_chunk]
+    slab at a time."""
+    b, t, h, d = q.shape
+    m = torch.full((b, t, h), -math.inf, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, t, h), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, t, h, d), dtype=torch.float32, device=q.device)
+    for _, vcb, logits in _kv_chunks(q, k, v, kv_chunk):
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bthc,bchd->bthd", p.to(vcb.dtype), vcb).float()
+        m = m_new
+    return m, l, acc
+
+
+def _chunked_attention_fwd_lse(q, k, v, kv_chunk: int):
+    """The chunk scan's output in q's dtype and its log-sum-exp rows ``lse =
+    m + log l`` ([B, T, H] f32), the residual of the flash-2 backward."""
+    m, l, acc = _chunk_scan(q, k, v, kv_chunk)
+    return (acc / l[..., None]).to(q.dtype), m + torch.log(l)
+
+
+def _chunked_cv_fwd(q, k, v, kv_chunk: int):
+    o, lse = _chunked_attention_fwd_lse(q, k, v, kv_chunk)
+    return o, (q, k, v, o, lse)
+
+
+def _chunked_cv_bwd(kv_chunk: int, res, g):
+    """The flash-2 backward of the chunk scan (JAX ``_chunked_cv_bwd``): per
+    chunk, p = exp(s - lse) recomputed, dV_c = p^T dO, dS = p (dO V_c^T -
+    delta) / sqrt(D) with delta = rowsum(dO o), dQ += dS K_c, dK_c = dS^T Q.
+    Returns (dq, dk, dv)."""
+    q, k, v, o, lse = res
+    s = k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = (g.float() * o.float()).sum(dim=-1)
+    g_in = g.to(q.dtype)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for kcb, vcb, logits in _kv_chunks(q, k, v, kv_chunk):
+        p = torch.exp(logits - lse[..., None])                 # f32, rows sum to 1
+        dvs.append(torch.einsum("bthc,bthd->bchd", p.to(g_in.dtype), g_in))
+        dp = torch.einsum("bthd,bchd->bthc", g_in, vcb).float()
+        ds = (p * (dp - delta[..., None]) * scale).to(q.dtype)
+        dq = dq + torch.einsum("bthc,bchd->bthd", ds, kcb).float()
+        dks.append(torch.einsum("bthc,bthd->bchd", ds, q))
+    dk = torch.cat(dks, dim=1)[:, :s]
+    dv = torch.cat(dvs, dim=1)[:, :s]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _ChunkedAttentionCV(torch.autograd.Function):
+    """The chunk scan with its hand-written flash-2 backward; saves (q, k,
+    v, o, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_chunk: int):
+        o, res = _chunked_cv_fwd(q, k, v, kv_chunk)
+        ctx.save_for_backward(*res)
+        ctx.kv_chunk = kv_chunk
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_chunked_cv_bwd(ctx.kv_chunk, ctx.saved_tensors, g), None)
+
+
+def _chunked_attention_cv(q, k, v, kv_chunk: int) -> torch.Tensor:
+    """Online-softmax attention over KV chunks with the flash-2 backward
+    (JAX ``layers._chunked_attention_cv``, its default long attention): any
+    head dim, any T and S, plain torch on every device."""
+    return _ChunkedAttentionCV.apply(q, k, v, kv_chunk)
+
+
+def attention_route(q_shape, kv_len: int, kv_chunk: Optional[int]) -> str:
+    """Which attention :func:`scaled_attention` runs for queries of
+    ``q_shape`` ([B, T, H, D]) over ``kv_len`` keys, decided from shapes
+    alone: "flash" (K1-K3) for a long self-attention at a head dim in
+    ``KERNEL_HEAD_DIMS``, "chunked" (:func:`_chunked_attention_cv`) for any
+    other long attention, "plain" (:func:`dot_product_attention`) below the
+    floor S >= max(2 kv_chunk, MIN_CHUNKED_SEQ) or without ``kv_chunk``."""
+    if not kv_chunk or kv_len < max(2 * kv_chunk, MIN_CHUNKED_SEQ):
+        return "plain"
+    if q_shape[1] == kv_len and q_shape[-1] in KERNEL_HEAD_DIMS:
+        return "flash"
+    return "chunked"
+
+
 def scaled_attention(q, k, v, kv_chunk: Optional[int] = None) -> torch.Tensor:
-    """Attention dispatcher (layers.py:309-342 of the JAX package): the
-    flash kernels for long self-attention, plain attention otherwise."""
-    if (kv_chunk and k.shape[1] >= max(2 * kv_chunk, MIN_CHUNKED_SEQ)
-            and q.shape[1] == k.shape[1]):
+    """Attention dispatcher (layers.py:309-342 of the JAX package), by
+    :func:`attention_route`."""
+    route = attention_route(q.shape, k.shape[1], kv_chunk)
+    if route == "flash":
         return flash_attention(q, k, v)
+    if route == "chunked":
+        return _chunked_attention_cv(q, k, v, kv_chunk)
     return dot_product_attention(q, k, v)
 
 
