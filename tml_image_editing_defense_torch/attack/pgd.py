@@ -46,6 +46,7 @@ from tml_image_editing_defense_torch.configs import TrainConfig
 from tml_image_editing_defense_torch.core.samplers import BaseSampler, DenoisePlan
 from tml_image_editing_defense_torch.models.model_zoo import DiffusionModel, PromptBank
 from tml_image_editing_defense_torch.models.vae import sample_latent
+from tml_image_editing_defense_torch.utils import profiling
 
 
 def renorm_l2(x: torch.Tensor, maxnorm: float, dim: int = 0) -> torch.Tensor:
@@ -479,18 +480,23 @@ def make_batched_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: Den
             for r0 in range(block.start, block.stop, chunk):
                 m = mean.detach().requires_grad_(True)
                 lv = logvar.detach().requires_grad_(True)
-                eps, noise, cond, step_noise, target, target_latent, source = rows_of(
-                    batched, draws, range(r0, r0 + chunk))
-                loss, rec, pert, out_lat = row_loss(
-                    m.repeat_interleave(chunk, 0), lv.repeat_interleave(chunk, 0), eps, noise,
-                    cond, step_noise, target, target_latent, source)
-                gm, gl = torch.autograd.grad(loss.sum(), [m, lv])
+                with profiling.span("tid.eot.inputs"):
+                    eps, noise, cond, step_noise, target, target_latent, source = rows_of(
+                        batched, draws, range(r0, r0 + chunk))
+                with profiling.span("tid.eot.forward", rep=r0, rows=b * chunk):
+                    loss, rec, pert, out_lat = row_loss(
+                        m.repeat_interleave(chunk, 0), lv.repeat_interleave(chunk, 0), eps,
+                        noise, cond, step_noise, target, target_latent, source)
+                with profiling.span("tid.eot.backward", waits=True):
+                    gm, gl = torch.autograd.grad(loss.sum(), [m, lv])
                 g_mean += gm
                 g_logvar += gl
                 loss_sum += loss.detach().view(b, chunk).sum(1)
             if reduce is not None:
-                reduce([g_mean, g_logvar, loss_sum])
-            torch.autograd.backward([mean, logvar], [g_mean / reps, g_logvar / reps])
+                with profiling.span("tid.eot.reduce"):
+                    reduce([g_mean, g_logvar, loss_sum])
+            with profiling.span("tid.eot.encoder_backward", waits=True):
+                torch.autograd.backward([mean, logvar], [g_mean / reps, g_logvar / reps])
         last = lambda t: t.detach().view(b, chunk, *t.shape[1:])[:, -1]     # noqa: E731
         aux = {"avg_loss": loss_sum / reps, "rec_loss": last(rec), "pert_loss": last(pert),
                "prompt_idx": [d.prompt_idx for d in draws], "output_latent": last(out_lat)}
@@ -534,10 +540,11 @@ def make_batched_pgd_step(model: DiffusionModel, sampler: BaseSampler, plan: Den
     def step(x_advs: torch.Tensor, batched: AttackData, draws: Sequence[EOTDraws]):
         grad, aux = eot(x_advs, batched, draws)
         mask = None if batched.mask is None else batched.mask[:, 0]
-        # the encoder's backward may leave the gradient in a strided layout
-        x_new = update(cfg.norm_type, x_adv=x_advs.detach(), grad=grad.contiguous(),
-                       x_src=batched.source[:, 0], step_size=cfg.step_size, eps=cfg.eps,
-                       min_value=cfg.min_value, max_value=cfg.max_value, mask=mask)
+        with profiling.span("tid.pgd.update"):
+            # the encoder's backward may leave the gradient in a strided layout
+            x_new = update(cfg.norm_type, x_adv=x_advs.detach(), grad=grad.contiguous(),
+                           x_src=batched.source[:, 0], step_size=cfg.step_size, eps=cfg.eps,
+                           min_value=cfg.min_value, max_value=cfg.max_value, mask=mask)
         return x_new, aux
 
     return step
@@ -612,6 +619,11 @@ def run_pgd(
     Loss scalars stay on the device until the loop ends; the returned history
     has one ``{avg_loss, rec_loss, pert_loss}`` entry per iteration run, a
     list of them per image for a batch.
+    Where ``torch.profiler`` runs when the loop starts (or a recording is
+    open), the call is recorded (``utils/profiling.py``): a
+    ``tid.pgd.iteration`` span an iteration, with the spans of the draws, the
+    EOT chunks, the models and the update under it; without one each span
+    costs one read of a flag.
     The JAX package's ``dispatch_block`` fuses iterations into one compiled
     TPU dispatch; a host-driven eager loop has no such dispatch, so the port
     has no counterpart of it."""
@@ -630,30 +642,36 @@ def run_pgd(
     x_adv, dev = x_init, data.source.device
     n, interval = cfg.n_optimization_steps, cfg.image_visualization_interval
     pending, preempted = [], []
-    for it in range(start_iteration, n):
-        if stop_flag:
-            preempted = [{"preempted_at": it}]
-            break
-        if seeds is None:
-            draws = draw_sampler(iteration_generator(seed, it, dev))
-        else:
-            draws = [draw_sampler(iteration_generator(s, it, dev)) for s in seeds]
-        x_adv, aux = step_fn(x_adv, data, draws)
-        pending.append(torch.stack([aux[k].float() for k in SCALAR_KEYS], dim=-1))
-        if vis_callback is not None and (it % interval == 0 or it == n - 1):
-            if vis_needs_image:
-                with torch.no_grad():
-                    aux["output_image"] = model.decode_latent(aux["output_latent"], scaled=False)
-            vis_callback(it, x_adv, aux)
-        if ckpt_callback is not None and ckpt_interval and it and it % ckpt_interval == 0:
-            ckpt_callback(it, x_adv)
+    images = 1 if seeds is None else len(seeds)
 
     def history(rows):
         return [dict(zip(SCALAR_KEYS, row)) for row in rows] + preempted
 
-    if seeds is None:
-        return x_adv, history(torch.stack(pending).cpu().tolist() if pending else [])
-    # [iterations, B, 3] -> per image
-    per_image = (torch.stack(pending, dim=1).cpu().tolist() if pending
-                 else [[] for _ in seeds])
-    return x_adv, [history(rows) for rows in per_image]
+    with profiling.recording_if_profiled(dev):
+        for it in range(start_iteration, n):
+            if stop_flag:
+                preempted = [{"preempted_at": it}]
+                break
+            with profiling.span(profiling.ITERATION, iteration=it, images=images):
+                with profiling.span("tid.pgd.draws"):
+                    if seeds is None:
+                        draws = draw_sampler(iteration_generator(seed, it, dev))
+                    else:
+                        draws = [draw_sampler(iteration_generator(s, it, dev)) for s in seeds]
+                x_adv, aux = step_fn(x_adv, data, draws)
+                pending.append(torch.stack([aux[k].float() for k in SCALAR_KEYS], dim=-1))
+                if vis_callback is not None and (it % interval == 0 or it == n - 1):
+                    if vis_needs_image:
+                        with torch.no_grad():
+                            aux["output_image"] = model.decode_latent(aux["output_latent"],
+                                                                      scaled=False)
+                    vis_callback(it, x_adv, aux)
+                if ckpt_callback is not None and ckpt_interval and it and it % ckpt_interval == 0:
+                    ckpt_callback(it, x_adv)
+
+        if seeds is None:
+            return x_adv, history(torch.stack(pending).cpu().tolist() if pending else [])
+        # [iterations, B, 3] -> per image
+        per_image = (torch.stack(pending, dim=1).cpu().tolist() if pending
+                     else [[] for _ in seeds])
+        return x_adv, [history(rows) for rows in per_image]

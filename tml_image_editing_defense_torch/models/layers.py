@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tml_image_editing_defense_torch.ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
+from tml_image_editing_defense_torch.utils import profiling
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -175,7 +176,8 @@ class _ChunkedAttentionCV(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*_chunked_cv_bwd(ctx.kv_chunk, ctx.saved_tensors, g), None)
+        with profiling.span("tid.attention.backward", route="chunked"):
+            return (*_chunked_cv_bwd(ctx.kv_chunk, ctx.saved_tensors, g), None)
 
 
 def _chunked_attention_cv(q, k, v, kv_chunk: int) -> torch.Tensor:
@@ -201,13 +203,16 @@ def attention_route(q_shape, kv_len: int, kv_chunk: Optional[int]) -> str:
 
 def scaled_attention(q, k, v, kv_chunk: Optional[int] = None) -> torch.Tensor:
     """Attention dispatcher (layers.py:309-342 of the JAX package), by
-    :func:`attention_route`."""
+    :func:`attention_route`; a ``tid.attention`` span with its route and
+    query shape."""
     route = attention_route(q.shape, k.shape[1], kv_chunk)
-    if route == "flash":
-        return flash_attention(q, k, v)
-    if route == "chunked":
-        return _chunked_attention_cv(q, k, v, kv_chunk)
-    return dot_product_attention(q, k, v)
+    with profiling.span("tid.attention", route=route, shape=q.shape):
+        profiling.count(f"attention.{route}")
+        if route == "flash":
+            return flash_attention(q, k, v)
+        if route == "chunked":
+            return _chunked_attention_cv(q, k, v, kv_chunk)
+        return dot_product_attention(q, k, v)
 
 
 class Attention(nn.Module):

@@ -26,6 +26,7 @@ from tml_image_editing_defense_torch.models.layers import (
     Upsample,
     timestep_embedding,
 )
+from tml_image_editing_defense_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -180,7 +181,17 @@ class UNet2DCondition(nn.Module):
         """``sample`` [B, C, h, w]; ``timesteps`` an int, a 0-d or a [B] tensor;
         ``encoder_hidden_states`` [B, S, cross_dim]; for a ``text_time``
         model ``text_embeds`` [B, P] (pooled) and ``time_ids`` [B, 6], or
-        [B, 5] for a refiner."""
+        [B, 5] for a refiner.  A ``tid.unet`` span (its ``nth`` under the
+        caller's span is the denoising step), and ``tid.unet.backward``
+        over its backward."""
+        rows = sample.shape[0]
+        t = timesteps if isinstance(timesteps, int) else None
+        with profiling.span("tid.unet", t=t, rows=rows):
+            return profiling.backward_span("tid.unet.backward", self._forward, sample, timesteps,
+                                           encoder_hidden_states, text_embeds, time_ids,
+                                           t=t, rows=rows)
+
+    def _forward(self, sample, timesteps, encoder_hidden_states, text_embeds, time_ids):
         cfg = self.config
         b = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device)

@@ -15,6 +15,7 @@ from tml_image_editing_defense_torch.models.layers import (
     SelfAttentionBlock,
     Upsample,
 )
+from tml_image_editing_defense_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -130,11 +131,21 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = nn.Conv2d(c, c, 1)
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        with profiling.span("tid.vae.encode", rows=x.shape[0]):
+            return profiling.backward_span("tid.vae.encode.backward", self._encode, x,
+                                           rows=x.shape[0])
+
+    def _encode(self, x):
         x = x.to(self.quant_conv.weight.dtype)
         mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
+        with profiling.span("tid.vae.decode", rows=z.shape[0]):
+            return profiling.backward_span("tid.vae.decode.backward", self._decode, z,
+                                           rows=z.shape[0])
+
+    def _decode(self, z):
         return self.decoder(self.post_quant_conv(z.to(self.post_quant_conv.weight.dtype)))
 
 

@@ -24,6 +24,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from tml_image_editing_defense_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("flash_attention.cu", "pgd_update.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -108,12 +110,14 @@ class CudaKernel:
 
     ``launches`` goes up by one for every launch that the CUDA runtime
     accepted, and nowhere else, so a run can show which kernels it went
-    through."""
+    through.  While a recording is open (``utils/profiling.py``) the same
+    launch also counts as ``launches.<symbol>`` in the innermost open span."""
 
     def __init__(self, symbol: str, argtypes: Sequence):
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self._counter = f"launches.{symbol}"
         self._fn = None
 
     def __call__(self, *args) -> None:
@@ -127,6 +131,7 @@ class CudaKernel:
             msg = library().tid_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+        profiling.count(self._counter)
 
 
 def stream_ptr(t: torch.Tensor) -> int:

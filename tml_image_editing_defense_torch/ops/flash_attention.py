@@ -24,6 +24,7 @@ from typing import Tuple
 import torch
 
 from tml_image_editing_defense_torch.ops._lib import F, I, P, CudaKernel, require_cuda, stream_ptr
+from tml_image_editing_defense_torch.utils import profiling
 
 #: Head dims the CUDA kernels are compiled for (csrc: TID_FOR_EACH_HEAD_DIM).
 KERNEL_HEAD_DIMS = (40, 64, 80, 512)
@@ -176,8 +177,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        return flash_bwd(q, k, v, o, lse, do.contiguous())
+        with profiling.span("tid.attention.backward", route="flash"):
+            q, k, v, o, lse = ctx.saved_tensors
+            return flash_bwd(q, k, v, o, lse, do.contiguous())
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
