@@ -700,13 +700,12 @@ def chunked_route_case(api, layers, fa, kernels, cfg) -> dict:
         del runs, q, k, v, g
     require([kern.launches for kern in fa.KERNELS] == before,
             "the chunked route launched K1-K3")
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     result = api.immunize(cfg)
     torch.cuda.synchronize()
     out["tiny_wall_s"] = time.perf_counter() - t0
-    out["tiny_launches"] = launches = {kern.symbol: kern.launches for kern in kernels}
+    out["tiny_launches"] = launches = kernel_runs(kernels)
     require(launches == {kern.symbol: int(kern.symbol == "tid_pgd_l2_update") for kern in kernels},
             ("tiny 512x512 launches", launches))
     out["tiny_history"] = result.history
@@ -1114,6 +1113,7 @@ def profile_call(fn) -> dict:
         busy_us += max(0.0, end - max(start, reach))       # union of the spans
         reach = max(reach, end)
     device_ms = busy_us / 1e3
+    flash_kernels = sum(kernel_group(name) == "flash attention K1-K3" for name, _ in spans)
     groups = {}
     for name, ms in kernels.items():
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + ms
@@ -1121,7 +1121,7 @@ def profile_call(fn) -> dict:
     return {"wall_ms": wall_s * 1e3, "device_ms": device_ms,
             "idle_share": max(0.0, 1.0 - device_ms / (wall_s * 1e3)),
             "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "top_kernels_ms": top}
+            "top_kernels_ms": top, "flash_kernels": flash_kernels}
 
 
 def profile_iteration(model, cfg, inputs) -> dict:
@@ -1181,6 +1181,50 @@ def synthetic_image(path: Path, seed: int, size=(640, 600)) -> None:
     Image.fromarray(np.uint8(np.clip((arr + 1.5) / 3.0, 0, 1) * 255)).save(path)
 
 
+def zero_launches(kernels) -> None:
+    """Every kernel's launches, and the counts of the EOT chunks replayed
+    from CUDA graphs (``attack/chunk_graph.py``), set to 0."""
+    from tml_image_editing_defense_torch.attack import chunk_graph
+
+    for kern in kernels:
+        kern.launches = 0
+    chunk_graph.COUNTS.clear()
+
+
+def kernel_runs(kernels) -> dict:
+    """How often each kernel ran on the card since :func:`zero_launches`,
+    by symbol: its launches, less the calls a capture took into a CUDA
+    graph, plus the launches the graphs' replays ran (a replay calls no
+    kernel; ``chunk_graph.kernel_runs``)."""
+    from tml_image_editing_defense_torch.attack import chunk_graph
+
+    return chunk_graph.kernel_runs(kernels)
+
+
+CHUNK_COUNTERS = ("eot.chunks.eager", "eot.chunks.graph", "eot.graph.captures")
+
+
+def chunk_counts() -> dict:
+    """The EOT chunks since :func:`zero_launches`, by how they ran."""
+    from tml_image_editing_defense_torch.attack import chunk_graph
+
+    return {k: chunk_graph.COUNTS[k] for k in CHUNK_COUNTERS}
+
+
+def expected_chunks(cfg, iterations: int) -> dict:
+    """The EOT chunks of one step of ``cfg``'s diffusion path run
+    ``iterations`` times, by ``attack/chunk_graph.py``'s rule: all eager
+    under a remat policy or ``remat_vae``; else the first eager, the second
+    captured, and it and every later one replayed."""
+    from tml_image_editing_defense_torch.attack.pgd import eot_chunk_size
+
+    total = iterations * cfg.grad_reps // eot_chunk_size(cfg)
+    eager, graph, captures = CHUNK_COUNTERS
+    if cfg.remat_policy != "none" or cfg.remat_vae:
+        return {eager: total, graph: 0, captures: 0}
+    return {eager: 1, graph: total - 1, captures: int(total > 1)}
+
+
 def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict, model=None) -> dict:
     """``api.immunize(cfg)`` on the card (on ``model`` where one is given)
     with every count set to 0 just before it and read just after; the
@@ -1190,8 +1234,7 @@ def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict, model=N
 
     from tml_image_editing_defense_torch.core.image_ops import load_image
 
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1199,11 +1242,15 @@ def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict, model=N
         result = api.immunize(cfg, model=model)     # on the card: the default device
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    launches = kernel_runs(kernels)
     n = cfg.n_optimization_steps
     expected = {kern.symbol: n * per_iteration.get(kern.symbol, 0) + outside.get(kern.symbol, 0)
                 for kern in kernels}
     require(launches == expected, (cfg.attack_mode, launches, expected))
+    chunks = chunk_counts()
+    want = (expected_chunks(cfg, n) if cfg.attack_mode == "diffusion"
+            else dict.fromkeys(CHUNK_COUNTERS, 0))
+    require(chunks == want, (cfg.attack_mode, "chunks", chunks, want))
 
     # the images as the attack holds them (in cfg.dtype)
     src = torch.from_numpy(load_image(cfg.source_image_path, cfg.image_size)).cuda()
@@ -1232,7 +1279,8 @@ def immunize_path(api, cfg, kernels, per_iteration: dict, outside: dict, model=N
             "max_memory_allocated_gb": (torch.cuda.max_memory_allocated() - before) / 1e9,
             "allocated_before_gb": before / 1e9,
             "history": result.history, "dist": dist, "launches": launches,
-            "expected_launches": expected, "_result": result, "_src": src, "_tgt": tgt}
+            "expected_launches": expected, "chunks": chunks, "_result": result, "_src": src,
+            "_tgt": tgt}
 
 
 def encoder_path(kernels, images) -> dict:
@@ -1264,8 +1312,7 @@ def encoder_path(kernels, images) -> dict:
     loop = make_encoder_attack_loop(model, ENC_STEPS, norm_type="linf", step_size=0.006,
                                     eps=0.1)
     torch.cuda.synchronize()
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     with torch.no_grad():
         target_latent = model.encode_image(tgt)
     torch.cuda.synchronize()
@@ -1273,7 +1320,7 @@ def encoder_path(kernels, images) -> dict:
     x, losses = loop(src, target_latent, noise[:ENC_STEPS])
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    launches = kernel_runs(kernels)
     # one batched VAE mid-block attention per step (forward + backward) and
     # the target encode's forward; one L-inf update per step
     expected = {kern.symbol: 0 for kern in kernels}
@@ -1306,17 +1353,18 @@ def resume_path(api, cfg, model, full_x, kernels, per_iteration: dict, tmp: Path
     api.immunize(part, model=model)
     state = part.output_path / "attack_state.npz"
     res_cfg = dataclasses.replace(cfg, output_path=tmp / "out_resume")
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = api.immunize(res_cfg, model=model, resume_from=state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    launches = kernel_runs(kernels)
     expected = {kern.symbol: per_iteration.get(kern.symbol, 0) for kern in kernels}
     expected["tid_flash_fwd"] += 2
     require(launches == expected, ("resume", launches, expected))
+    chunks = chunk_counts()
+    require(chunks == expected_chunks(cfg, 1), ("resume chunks", chunks))
     require(len(res.history) == 1 and all(math.isfinite(v) for v in res.history[0].values()),
             res.history)
     rows = [json.loads(r) for r in (res_cfg.output_path / "metrics.jsonl").read_text().splitlines()]
@@ -1324,7 +1372,8 @@ def resume_path(api, cfg, model, full_x, kernels, per_iteration: dict, tmp: Path
     diff = max_err(res.x_adv, full_x)
     require(diff <= 1e-3, f"resumed x_adv off the uninterrupted run's by {diff:.3e} (gate 1e-3)")
     return {"wall_s": wall, "iteration_row_t_s": rows[0]["t"], "x_adv_max_abs_diff": diff,
-            "history": res.history, "launches": launches, "expected_launches": expected}
+            "history": res.history, "launches": launches, "expected_launches": expected,
+            "chunks": chunks}
 
 
 def write_safetensors(path: Path, tensors: dict) -> int:
@@ -1450,14 +1499,13 @@ def real_weights_path(api, prep, kernels, cfg, per_iteration: dict, outside: dic
     out["write_s"] = time.perf_counter() - t
 
     bundle = root / "sd15_lcm.msgpack"
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     t = time.perf_counter()
     prepared = prep.main(["--model-dir", str(root), "--lora", str(lora_path), "--out", str(bundle),
                           "--smoke"])
     torch.cuda.synchronize()
     out["prepare_s"] = time.perf_counter() - t
-    out["smoke_launches"] = {kern.symbol: kern.launches for kern in kernels}
+    out["smoke_launches"] = kernel_runs(kernels)
     out["bundle_bytes"] = bundle.stat().st_size
     del prepared
     for sub in ("unet", "vae", "text_encoder"):
@@ -1769,8 +1817,7 @@ def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, tmp: 
             "--noise-pool", str(adv_dir / "noise.npz"), "--source-image-path", str(source),
             "--target-image-path", str(target), "--output-path", str(out_dir), "--n-noise", "1",
             "--validation-images-path", str(tmp / "no_validation.txt"), "--prompts", *prompts]
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1778,7 +1825,7 @@ def evaluate_path(cli, kernels, adv_dir: Path, source: Path, target: Path, tmp: 
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     require(rc == 0, f"evaluate exited {rc}")
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    launches = kernel_runs(kernels)
     cfg = InferenceConfig()
     unet_steps = PLMSSampler(make_noise_schedule()).plan(cfg.n_steps, cfg.strength).num_steps
     batches = 1                             # the source image's cells
@@ -1948,8 +1995,7 @@ def sdxl_evaluate_path(cli, kernels, images: dict, tmp: Path) -> dict:
             "--target-image-path", str(paths["target"]), "--output-path", str(out_dir),
             "--n-noise", "1", "--validation-images-path", str(tmp / "no_validation.txt"),
             "--n-steps", str(SDXL_EVAL_STEPS), "--prompts", prompt]
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1957,7 +2003,7 @@ def sdxl_evaluate_path(cli, kernels, images: dict, tmp: Path) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     require(rc == 0, f"SDXL evaluate exited {rc}")
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    launches = kernel_runs(kernels)
     cfg = InferenceConfig()
     unet_steps = EulerSampler(make_noise_schedule()).plan(SDXL_EVAL_STEPS,
                                                           cfg.strength).num_steps
@@ -2028,8 +2074,7 @@ def universal_path(ua, universal, kernels, dataset: Path, out: Path, args: list,
         return timed
 
     argv = ["--dataset-dir", str(dataset), "--output", str(out), *args]
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     universal.make_universal_step = recording
@@ -2040,7 +2085,7 @@ def universal_path(ua, universal, kernels, dataset: Path, out: Path, args: list,
         wall = time.perf_counter() - t0
     finally:
         universal.make_universal_step = real
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    launches = kernel_runs(kernels)
     cfg, steps = run.cfg, len(run.losses)
     vis_every = int(args[args.index("--vis-every") + 1]) if "--vis-every" in args else None
     validations = len(range(0, steps, vis_every)) if vis_every else 0
@@ -2373,8 +2418,7 @@ def batch_path(run, api, kernels, cfg, paths, out_dir: Path, per_iteration: dict
         captured.append(real_batch(*a, **k))
         return captured[-1]
 
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     api.immunize_batch = spy
@@ -2386,11 +2430,13 @@ def batch_path(run, api, kernels, cfg, paths, out_dir: Path, per_iteration: dict
     finally:
         api.immunize_batch = real_batch
     wall = time.perf_counter() - t0
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    launches = kernel_runs(kernels)
     n = cfg.n_optimization_steps
     expected = {kern.symbol: n * per_iteration.get(kern.symbol, 0) + outside.get(kern.symbol, 0)
                 for kern in kernels}
     require(launches == expected, ("batch", launches, expected))
+    chunks = chunk_counts()
+    require(chunks == expected_chunks(cfg, n), ("batch chunks", chunks, expected_chunks(cfg, n)))
     (results,) = captured
     out = batch_checks(results, cfg, paths, out_dir)
     require(len(times) == n, times)
@@ -2400,7 +2446,7 @@ def batch_path(run, api, kernels, cfg, paths, out_dir: Path, per_iteration: dict
                max_memory_allocated_gb=(torch.cuda.max_memory_allocated() - before) / 1e9,
                allocated_before_gb=before / 1e9, launches=launches,
                expected_launches=expected, per_iteration_launches=per_iteration,
-               _results=results)
+               chunks=chunks, _results=results)
     return out
 
 
@@ -2432,8 +2478,7 @@ def sweep_path(cli, api, kernels, images_dir: Path, out_root: Path, per_cell: di
             return out
         return call
 
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     api._cfg_model, api.immunize, api.evaluate = counting, timed("immunize"), timed("evaluate")
@@ -2448,7 +2493,7 @@ def sweep_path(cli, api, kernels, images_dir: Path, out_root: Path, per_cell: di
             setattr(api, name, fn)
     wall = time.perf_counter() - t0
     require(rc == 0, f"sweep exited {rc}")
-    launches = {kern.symbol: kern.launches for kern in kernels}
+    launches = kernel_runs(kernels)
     stems = sorted(p.stem for p in images_dir.iterdir())
     expected = {kern.symbol: len(stems) * per_cell.get(kern.symbol, 0) for kern in kernels}
     require(launches == expected, ("sweep", launches, expected))
@@ -2521,14 +2566,13 @@ def bench_path(bench, kernels, layers, card: str, unet_steps: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     bench.free_all_device_memory = watched_free
     try:
-        for kern in kernels:
-            kern.launches = 0
+        zero_launches(kernels)
         t0 = time.perf_counter()
         bench.run_legs(legs, {"_dtype": torch.bfloat16, "device": card},
                        time.time() + BN_DEADLINE_S, emit=lambda s: lines.append(json.loads(s)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {kern.symbol: kern.launches for kern in kernels}
+        launches = kernel_runs(kernels)
     finally:
         bench.free_all_device_memory = free
     peaks.append((torch.cuda.max_memory_allocated() - before) / 1e9)
@@ -2706,15 +2750,14 @@ def dp_rank(spec: dict) -> dict:
     out["gate1"] = {"x_adv": x.cpu(), "avg_loss": aux["avg_loss"].item()}
 
     # gate 2: api.immunize with eot_shards, every count set to 0 just before
-    for kern in kernels:
-        kern.launches = 0
+    zero_launches(kernels)
     t0 = time.perf_counter()
     res = api.immunize(dataclasses.replace(cfg, eot_shards=size,
                                            n_optimization_steps=DP_ITERATIONS), model=model)
     torch.cuda.synchronize()
     out["immunize"] = {"wall_s": time.perf_counter() - t0, "history": res.history,
                        "x_adv": res.x_adv.cpu(),
-                       "launches": {k.symbol: k.launches for k in kernels}}
+                       "launches": kernel_runs(kernels), "chunks": chunk_counts()}
     del res
     # one more sharded iteration, warm, both ranks started together
     dist.barrier()
@@ -2872,6 +2915,12 @@ def dp_path(api, kernels, model, tmp: Path, source: Path, target: Path, adversar
                  for k in kernels} for r in range(DP_RANKS)]
     launches = [r["immunize"]["launches"] for r in ranks]
     require(launches == expected, ("dp launches by rank", launches, expected))
+    # each rank's chunks: one rep each (pgd.py's ``rows``), its block of reps
+    rank_chunks = expected_chunks(dataclasses.replace(cfg, derive_norm_hyperparams=False,
+                                                      grad_reps=cfg.grad_reps // DP_RANKS,
+                                                      eot_chunk=1), DP_ITERATIONS)
+    chunks = [r["immunize"]["chunks"] for r in ranks]
+    require(all(c == rank_chunks for c in chunks), ("dp chunks by rank", chunks, rank_chunks))
     hist = [r["immunize"]["history"] for r in ranks]
     require(all(h == hist[0] for h in hist) and len(hist[0]) == DP_ITERATIONS
             and all(math.isfinite(v) for h in hist[0] for v in h.values()), ("dp histories", hist))
@@ -2886,7 +2935,8 @@ def dp_path(api, kernels, model, tmp: Path, source: Path, target: Path, adversar
                                        - load_batch([source], 512).cpu()).item()
     require(dist_l2 <= cfg.eps + 1e-3, f"dp: |x_adv - src|_2 = {dist_l2}")
     t_rows = {r["step"]: r["t"] for r in rows}
-    out["immunize"] = {"launches_by_rank": launches, "history": hist[0], "dist": dist_l2,
+    out["immunize"] = {"launches_by_rank": launches, "chunks_by_rank": chunks,
+                       "history": hist[0], "dist": dist_l2,
                        "wall_s_by_rank": [r["immunize"]["wall_s"] for r in ranks],
                        "s_per_iteration_after_first": t_rows[DP_ITERATIONS - 1] - t_rows[0]}
     out["launches"] = {k: sum(lr[k] for lr in launches) for k in launches[0]}
@@ -3085,6 +3135,10 @@ def main(argv) -> int:
               f"update: {report['iteration_vs_plain']}", flush=True)
         report["profile"] = profile_iteration(result.model, cfg, inputs)
         print_profile("PGD iteration", report["profile"])
+        # its chunks replayed from CUDA graphs: the profiler saw every K1-K3 run
+        require(report["profile"]["flash_kernels"] == 3 * per_it,
+                ("K1-K3 the profiler saw in one replayed iteration",
+                 report["profile"]["flash_kernels"], 3 * per_it))
         d_steps = LCMSampler(make_noise_schedule()).plan(
             cfg.n_denoising_steps_per_iteration, limit_t=700).num_steps
         report["main_path"]["flops"] = fl = path_flops(

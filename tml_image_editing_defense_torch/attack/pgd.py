@@ -34,6 +34,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from tml_image_editing_defense_torch.attack.chunk_graph import ChunkRunner
 from tml_image_editing_defense_torch.attack.forward import (
     CondInputs,
     attack_forward_from_latent,
@@ -452,12 +453,25 @@ def make_batched_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: Den
     gradients and the loss sums in place over the ranks that run the other
     blocks, before the one encoder backward (JAX's ``pmean`` of ``gdist``,
     eot.py:90-94).  The sums are divided by ``grad_reps`` after it; the
-    aux's last rep is then the block's."""
+    aux's last rep is then the block's.
+
+    On the card each chunk, its forward and its gradient, replays from CUDA
+    graphs captured once (:mod:`~tml_image_editing_defense_torch.attack.chunk_graph`,
+    whose rule decides); the encode, its backward, the accumulation and
+    ``reduce`` stay eager."""
     row_loss = _row_loss(model, sampler, plan, cfg)
     reps = cfg.grad_reps
     chunk = eot_chunk_size(cfg) if rows is None else 1
     block = range(reps) if rows is None else rows
     encode = _vae_checkpoint(model.vae.encode, cfg.remat_vae)
+
+    def chunk_loss(m, lv, eps, noise, ctx, text_embeds, time_ids, step_noise, target,
+                   target_latent, source):
+        return row_loss(m.repeat_interleave(chunk, 0), lv.repeat_interleave(chunk, 0), eps,
+                        noise, CondInputs(ctx, text_embeds, time_ids), step_noise, target,
+                        target_latent, source)
+
+    run_chunk = ChunkRunner(chunk_loss, cfg)
 
     def rows_of(batched: AttackData, draws: Sequence[EOTDraws], rows: range):
         parts = [rep_inputs(batched, d, rows, noise_pool=batched.noise_pool[i])
@@ -478,26 +492,22 @@ def make_batched_eot_grad(model: DiffusionModel, sampler: BaseSampler, plan: Den
             g_mean, g_logvar = torch.zeros_like(mean), torch.zeros_like(logvar)
             loss_sum = torch.zeros((b,), dtype=torch.float32, device=x.device)
             for r0 in range(block.start, block.stop, chunk):
-                m = mean.detach().requires_grad_(True)
-                lv = logvar.detach().requires_grad_(True)
                 with profiling.span("tid.eot.inputs"):
                     eps, noise, cond, step_noise, target, target_latent, source = rows_of(
                         batched, draws, range(r0, r0 + chunk))
-                with profiling.span("tid.eot.forward", rep=r0, rows=b * chunk):
-                    loss, rec, pert, out_lat = row_loss(
-                        m.repeat_interleave(chunk, 0), lv.repeat_interleave(chunk, 0), eps,
-                        noise, cond, step_noise, target, target_latent, source)
-                with profiling.span("tid.eot.backward", waits=True):
-                    gm, gl = torch.autograd.grad(loss.sum(), [m, lv])
+                gm, gl, loss, rec, pert, out_lat = run_chunk(
+                    (mean, logvar, eps, noise, cond.ctx, cond.text_embeds, cond.time_ids,
+                     step_noise, target, target_latent, source), rep=r0, rows=b * chunk)
                 g_mean += gm
                 g_logvar += gl
-                loss_sum += loss.detach().view(b, chunk).sum(1)
+                loss_sum += loss.view(b, chunk).sum(1)
             if reduce is not None:
                 with profiling.span("tid.eot.reduce"):
                     reduce([g_mean, g_logvar, loss_sum])
             with profiling.span("tid.eot.encoder_backward", waits=True):
                 torch.autograd.backward([mean, logvar], [g_mean / reps, g_logvar / reps])
-        last = lambda t: t.detach().view(b, chunk, *t.shape[1:])[:, -1]     # noqa: E731
+        # copies: a replayed chunk's outputs are its graphs' static tensors
+        last = lambda t: t.view(b, chunk, *t.shape[1:])[:, -1].clone()      # noqa: E731
         aux = {"avg_loss": loss_sum / reps, "rec_loss": last(rec), "pert_loss": last(pert),
                "prompt_idx": [d.prompt_idx for d in draws], "output_latent": last(out_lat)}
         return x.grad, aux
@@ -622,8 +632,9 @@ def run_pgd(
     Where ``torch.profiler`` runs when the loop starts (or a recording is
     open), the call is recorded (``utils/profiling.py``): a
     ``tid.pgd.iteration`` span an iteration, with the spans of the draws, the
-    EOT chunks, the models and the update under it; without one each span
-    costs one read of a flag.
+    EOT chunks, the models and the update under it (a chunk replayed from
+    CUDA graphs holds no model span); without one each span costs one read
+    of a flag.
     The JAX package's ``dispatch_block`` fuses iterations into one compiled
     TPU dispatch; a host-driven eager loop has no such dispatch, so the port
     has no counterpart of it."""

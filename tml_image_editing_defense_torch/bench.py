@@ -57,6 +57,7 @@ from typing import Optional  # noqa: E402
 
 import torch  # noqa: E402
 
+from tml_image_editing_defense_torch.attack import chunk_graph  # noqa: E402
 from tml_image_editing_defense_torch.attack.encoder_attack import (  # noqa: E402
     make_encoder_attack_loop,
 )
@@ -249,8 +250,10 @@ def leg_launches(unet_cfg, cfg, unet_steps: int, steps: int) -> dict:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch count so far, by symbol."""
-    return {k.symbol: k.launches for k in KERNELS}
+    """How often each kernel ran on the card so far, by symbol: its
+    launches, with those of the EOT chunks replayed from CUDA graphs
+    (``chunk_graph.kernel_runs``)."""
+    return chunk_graph.kernel_runs(KERNELS)
 
 
 def require_launches(leg: str, device: torch.device, before: dict, expected: dict) -> dict:

@@ -244,6 +244,21 @@ class PLMSSampler(BaseSampler):
 
     kind = "plms"
 
+    def __init__(self, schedule: NoiseSchedule):
+        super().__init__(schedule)
+        self._weights = {}
+
+    def _weights_on(self, plan: DenoisePlan, device, dtype) -> torch.Tensor:
+        """``plan.ab_w`` on ``device`` in ``dtype``, copied once a plan: a
+        copy from host memory in every step would wait on the host, and a
+        CUDA graph cannot capture it."""
+        key = (id(plan.ab_w), device, dtype)
+        if key not in self._weights:
+            # the table is kept beside its copy, so its id is not reused
+            self._weights[key] = (plan.ab_w, torch.as_tensor(plan.ab_w, dtype=dtype,
+                                                             device=device))
+        return self._weights[key][1]
+
     def plan(self, num_inference_steps, strength=None, limit_t=None, min_t=None) -> DenoisePlan:
         k = num_inference_steps
         ratio = self.schedule.num_train_timesteps // k
@@ -283,7 +298,7 @@ class PLMSSampler(BaseSampler):
         # row 0 always pushes and never steps from orig, so it may overwrite it
         orig = sample if i == 0 else orig
         base = orig if plan.use_orig[i] else sample
-        w = torch.as_tensor(plan.ab_w[i], dtype=sample.dtype, device=sample.device)
+        w = self._weights_on(plan, sample.device, sample.dtype)[i]
         combo = float(plan.ab_a[i]) * model_output + torch.tensordot(w, ets, dims=1)
         a_t, a_prev = plan.alpha_prod[i], plan.alpha_prod_prev[i]
         sample_coeff = float(np.sqrt(a_prev / a_t))

@@ -194,9 +194,13 @@ class UNet2DCondition(nn.Module):
     def _forward(self, sample, timesteps, encoder_hidden_states, text_embeds, time_ids):
         cfg = self.config
         b = sample.shape[0]
-        timesteps = torch.as_tensor(timesteps, device=sample.device)
-        if timesteps.dim() == 0:
-            timesteps = timesteps.expand(b)
+        if isinstance(timesteps, int):
+            # a fill, not a copy from host memory: a CUDA graph can capture it
+            timesteps = torch.full((b,), timesteps, dtype=torch.int64, device=sample.device)
+        else:
+            timesteps = torch.as_tensor(timesteps, device=sample.device)
+            if timesteps.dim() == 0:
+                timesteps = timesteps.expand(b)
         dtype = self.conv_in.weight.dtype
         emb = self.time_embedding(timestep_embedding(timesteps, cfg.block_out_channels[0])
                                   .to(dtype))

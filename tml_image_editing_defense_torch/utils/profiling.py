@@ -3,7 +3,8 @@
 - :func:`span`, :func:`count`, :func:`backward_span`: the program's spans
   and counters, kept in memory by a :class:`Recording` while one is open
   (:func:`recording`; :func:`recording_if_profiled` in ``run_pgd``);
-  :func:`last_recording` returns the newest;
+  :func:`last_recording` returns the newest; :func:`spans_paused` keeps
+  spans shut over a block whose counts still go to the spans around it;
 - :func:`trace`: ``torch.profiler`` over a block with a recording open; the
   Chrome trace (the spans as ``record_function`` ranges) and one line a
   span (``spans.jsonl``) go into a directory;
@@ -122,6 +123,8 @@ class Recording:
         #: the host clock's ns a device ns, from the anchors at the start and the close
         self.clock_rate: Optional[float] = None
         self.is_open = True
+        #: no span opens while set (:func:`spans_paused`)
+        self.paused = False
         self._ids = itertools.count()
         self._stacks: Dict[int, List[Span]] = {}   # thread -> its open spans, innermost last
         self._waiting: List[Span] = []              # open spans that wait for another thread
@@ -265,7 +268,7 @@ def span(name: str, *, waits: bool = False, **attrs):
     else a shared no-op.  ``waits``: the span waits for another thread (the
     backward), whose spans opened with nothing open take it as parent."""
     rec = _ACTIVE
-    if rec is None:
+    if rec is None or rec.paused:
         return _NOOP
     return Span(rec, name, attrs, waits)
 
@@ -276,6 +279,22 @@ def count(name: str, n: int = 1) -> None:
     rec = _ACTIVE
     if rec is not None:
         rec.count(name, n)
+
+
+@contextlib.contextmanager
+def spans_paused():
+    """No span opens in the block and no module's backward is marked (a
+    CUDA graph's capture may not take their CUDA events); the block's counts
+    still go to the spans open around it."""
+    rec = _ACTIVE
+    if rec is None or rec.paused:
+        yield
+        return
+    rec.paused = True
+    try:
+        yield
+    finally:
+        rec.paused = False
 
 
 def last_recording() -> Optional[Recording]:
@@ -318,7 +337,7 @@ class _Token:
         self.rec, self.name, self.attrs, self.span = rec, name, attrs, None
 
     def open(self):
-        if self.span is None and self.rec.is_open:
+        if self.span is None and self.rec.is_open and not self.rec.paused:
             self.span = Span(self.rec, self.name, self.attrs)
             self.rec._begin(self.span)
 
@@ -364,7 +383,7 @@ def backward_span(name: str, fn, x: torch.Tensor, *args, **attrs):
     the gradient reaching its outputs to the gradient leaving ``x``.
     Values and gradients are those of ``fn`` alone."""
     rec = _ACTIVE
-    if rec is None or not torch.is_grad_enabled() or not x.requires_grad:
+    if rec is None or rec.paused or not torch.is_grad_enabled() or not x.requires_grad:
         return fn(x, *args)
     token = _Token(rec, name, attrs)
     out = fn(_InputMarker.apply(token, x), *args)
