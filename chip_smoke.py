@@ -45,6 +45,17 @@ Phases, each fatal on failure:
    back-to-back calls from the host and, apart from host time, medians of
    the kernels' own spans in torch.profiler (K4 and K5 with the operands in
    L2 and after a 128 MB write evicts them);
+3a. group norm with its SiLU (:func:`check_group_norm`): the kernels of
+   ``csrc/group_norm.cu`` against the plain version, ``F.group_norm`` +
+   ``F.silu`` (bf16 z bit for bit), and against float64, forward and
+   backward, in bf16 at the cells' shapes (the 1024x1024 and 512x512 VAE
+   decoders' [1, 128, 1024, 1024] and [4, 128, 512, 512], SD-1.5's UNet at
+   [8, 320, 64, 64] and [8, 1280, 8, 8], SDXL 1024x1024's
+   [2, 320, 128, 128]), in f32 at [8, 320, 64, 64], at a ragged
+   [2, 96, 33, 35], and with the SiLU off at [8, 640, 32, 32]; two calls
+   bit-equal; each one's device time beside the plain version's and its
+   bound by bytes.  Every later path must run the group norm kernels
+   (:func:`kernel_runs`): on the card no group norm has another route;
 3b. the chunked route (:func:`chunked_route_case`): ``scaled_attention``
    at head dims outside K1-K3's tile plans, [1, 16384, 1, 32] and
    [2, 2304, 8, 160] in f32, forward and backward against dense plain
@@ -233,6 +244,7 @@ Phases, each fatal on failure:
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -485,14 +497,17 @@ def ptxas_summary(report: str) -> list:
             mangled, name, spill = line.split("'")[1], None, 0
             for tag in ("flash_fwd_kernel", "flash_bwd_kv_kernel", "flash_bwd_q_kernel",
                         "pgd_l2_resident_kernel", "pgd_l2_partials_kernel",
-                        "pgd_l2_write_kernel", "pgd_linf_kernel"):
+                        "pgd_l2_write_kernel", "pgd_linf_kernel", *GN_FWD_KERNELS,
+                        *GN_BWD_KERNELS):
                 if tag in mangled:
                     rest = mangled.split(tag)[1]
                     m = re.match(r"I(f|13__nv_bfloat16)((?:Li\d+E)*)E", rest)
                     e = re.match(r"INS_\d+(F32|BF16)ElemE(Lb1E)?", rest)
                     w = re.match(r"_(tma|wide)I((?:Li\d+E)*)E", rest)
                     args = ([{"f": "f32"}.get(m[1], "bf16")] + re.findall(r"Li(\d+)E", m[2])
-                            if m else [e[1].lower()] + (["mask"] if e[2] else []) if e
+                            if m else [e[1].lower()] + ([
+                                "silu" if tag.startswith("group_norm") else "mask"] if e[2] else [])
+                            if e
                             else [f"bf16 {w[1]}"] + re.findall(r"Li(\d+)E", w[2]) if w
                             else [rest[1:40]])
                     name = f"{tag}<{', '.join(args)}>"
@@ -955,6 +970,108 @@ def check_updates(pk, gen) -> dict:
     return {"l2": l2, "l2_checks": checks, "l2_slices": slices, "linf": linf}
 
 
+#: (shape, groups, eps, dtype, silu, timed) of the group norm phase: the
+#: cells' shapes in bf16, one in f32, a ragged one (no 16-byte vectors), and
+#: the SiLU off (Transformer2D's and the VAE attention's norms)
+GN_CASES = (((1, 128, 1024, 1024), 32, 1e-6, "bfloat16", True, True),
+            ((4, 128, 512, 512), 32, 1e-6, "bfloat16", True, True),
+            ((8, 320, 64, 64), 32, 1e-5, "bfloat16", True, True),
+            ((8, 1280, 8, 8), 32, 1e-5, "bfloat16", True, True),
+            ((2, 320, 128, 128), 32, 1e-5, "bfloat16", True, True),
+            ((8, 320, 64, 64), 32, 1e-5, "float32", True, True),
+            ((2, 96, 33, 35), 32, 1e-6, "bfloat16", True, False),
+            ((8, 640, 32, 32), 32, 1e-5, "bfloat16", False, True))
+GN_FWD_KERNELS = ("group_norm_moments_kernel", "group_norm_apply_kernel")
+GN_BWD_KERNELS = ("group_norm_grad_sums_kernel", "group_norm_grad_input_kernel")
+#: Per element |kernel - ref| <= rtol |ref| + atol max |ref|, by reference,
+#: dtype and output, as tests/test_torch_group_norm.py holds them and says
+#: why: in bf16 the kernels round where PyTorch's unfused ops round (mean,
+#: rstd, a, z, dy, dx), so z is PyTorch's bit for bit and dx within an ulp
+#: of an element and 2^-8 of the peak
+GN_TOL = {"float64": {("bfloat16", "z"): (2 ** -7, 2 ** -6), ("bfloat16", "dx"): (2 ** -7, 2 ** -6),
+                      ("float32", "z"): (1e-5, 1e-5), ("float32", "dx"): (1e-5, 1e-5)},
+          "plain": {("bfloat16", "z"): (0.0, 0.0), ("bfloat16", "dx"): (2 ** -7, 2 ** -8),
+                    ("float32", "z"): (1e-6, 1e-6), ("float32", "dx"): (1e-6, 1e-6)}}
+
+
+def check_group_norm(gen) -> dict:
+    """The group norm kernels at GN_CASES: forward and backward against
+    the plain version (PyTorch's ``F.group_norm`` + ``F.silu``) and float64,
+    two calls bit-equal; the timed cases' device times (kernels: profiler
+    spans; the plain version: CUDA events), beside the least time for their
+    bytes (each input read once and each output written once)."""
+    import torch
+    import torch.nn as nn
+
+    from tml_image_editing_defense_torch.ops import group_norm as gn
+
+    out = {}
+    for shape, groups, eps, dtype_name, silu, timed in GN_CASES:
+        dtype = getattr(torch, dtype_name)
+        x = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        dz = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        norm = nn.GroupNorm(groups, shape[1], eps=eps).to("cuda", dtype).requires_grad_(False)
+        with torch.no_grad():
+            norm.weight.copy_(1 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda"))
+            norm.bias.copy_(0.1 * torch.randn(shape[1], generator=gen, device="cuda"))
+        norms = {"plain": norm, "float64": copy.deepcopy(norm).to(torch.float64)}
+        w, b = norms["plain"].weight, norms["plain"].bias
+        fwd = lambda: gn.group_norm_fwd(x, w, b, groups, eps, silu)     # noqa: E731
+        z, stats = fwd()
+        bwd = lambda: gn.group_norm_bwd(dz, x, w, b, stats, groups, silu)   # noqa: E731
+        dx = bwd()
+        z2, stats2 = fwd()
+        dx2 = gn.group_norm_bwd(dz, x, w, b, stats2, groups, silu)
+        require(torch.equal(z, z2) and torch.equal(dx, dx2), f"group norm {shape}: two calls differ")
+        refs = {}
+        for name, norm in norms.items():
+            xr = x.detach().to(norm.weight.dtype, copy=True).requires_grad_(True)
+            with torch.enable_grad():
+                zr = gn.group_norm_plain(xr, norm, silu)
+                (dxr,) = torch.autograd.grad(zr, xr, dz.to(xr.dtype), retain_graph=True)
+            refs[name] = (xr, zr, dxr)
+        errs = {}
+        for name, (_, zr, dxr) in refs.items():
+            for what, got, want in (("z", z, zr.detach()), ("dx", dx, dxr)):
+                rtol, atol = GN_TOL[name][dtype_name, what]
+                d = (got.double() - want.double()).abs()
+                peak = want.double().abs().max()
+                over = float((d - rtol * want.double().abs() - atol * peak).max())
+                errs[f"{what} vs {name}"] = float(d.max() / peak)
+                if name == "plain":
+                    errs[f"{what} share unequal to plain"] = float((d > 0).double().mean())
+                require(over <= 0, f"group norm {shape} {dtype_name} silu={silu} {what} vs "
+                                   f"{name}: {over:.3e} over the bound")
+        r = {"shape": list(shape), "dtype": dtype_name, "silu": silu, "peak_relative_err": errs}
+        if timed:
+            xp, zp, _ = refs["plain"]
+            plain_fwd = lambda: gn.group_norm_plain(x, norms["plain"], silu)   # noqa: E731
+            plain_bwd = lambda: torch.autograd.grad(zp, xp, dz, retain_graph=True)  # noqa: E731
+            n = x.numel() * x.element_size()
+            r.update(device_ms={"fwd": device_ms(fwd, GN_FWD_KERNELS, reps=20),
+                                "bwd": device_ms(bwd, GN_BWD_KERNELS, reps=20)},
+                     host_call_ms={"fwd": cuda_ms(fwd, 20), "bwd": cuda_ms(bwd, 20)},
+                     plain_ms={"fwd": cuda_ms(plain_fwd, 20), "bwd": cuda_ms(plain_bwd, 20)},
+                     bound_ms={"fwd": bound_ms(0, 2 * n, 1)[0], "bwd": bound_ms(0, 3 * n, 1)[0]})
+        out[f"{list(shape)}-{dtype_name}" + ("" if silu else "-no-silu")] = r
+        del refs
+    return out
+
+
+def print_group_norm(res: dict) -> None:
+    for key, r in res.items():
+        act = " + SiLU" if r["silu"] else ""
+        line = f"[kernels] group norm{act} {key}: peak-relative max err " + ", ".join(
+            f"{k} {v:.2e}" for k, v in r["peak_relative_err"].items()) + "; two calls bit-equal"
+        if "device_ms" in r:
+            line += "; " + "; ".join(
+                f"{d} device {r['device_ms'][d]['ms']:.4f} ms (host call {r['host_call_ms'][d]:.4f}"
+                f", plain version {r['plain_ms'][d]:.4f}, bound {r['bound_ms'][d]:.4f} by bytes, "
+                f"{100 * r['bound_ms'][d] / r['device_ms'][d]['ms']:.0f} % of it)"
+                for d in ("fwd", "bwd"))
+        print(line, flush=True)
+
+
 def one_iteration_inputs(model, cfg, source, target, mask=None):
     """What one PGD iteration of an immunize path takes, drawn as immunize
     draws its first iteration, in the source's dtype: (sampler, plan, data,
@@ -1182,22 +1299,35 @@ def synthetic_image(path: Path, seed: int, size=(640, 600)) -> None:
 
 
 def zero_launches(kernels) -> None:
-    """Every kernel's launches, and the counts of the EOT chunks replayed
-    from CUDA graphs (``attack/chunk_graph.py``), set to 0."""
+    """Every kernel's launches (the group norm kernels' too), and the counts
+    of the EOT chunks replayed from CUDA graphs (``attack/chunk_graph.py``),
+    set to 0."""
     from tml_image_editing_defense_torch.attack import chunk_graph
+    from tml_image_editing_defense_torch.ops import group_norm as gn
 
-    for kern in kernels:
+    for kern in (*kernels, *gn.KERNELS):
         kern.launches = 0
     chunk_graph.COUNTS.clear()
+
+
+#: The group norm kernels' runs on each path, in the order the paths ran
+GN_RUNS = []
+GROUP_NORM_FWD = "tid_group_norm_fwd"
 
 
 def kernel_runs(kernels) -> dict:
     """How often each kernel ran on the card since :func:`zero_launches`,
     by symbol: its launches, less the calls a capture took into a CUDA
     graph, plus the launches the graphs' replays ran (a replay calls no
-    kernel; ``chunk_graph.kernel_runs``)."""
+    kernel; ``chunk_graph.kernel_runs``).  The group norm kernels' runs go
+    to GN_RUNS, and the forward's must be above 0: every path runs the VAE
+    or the UNet, whose group norms take the kernels on the card."""
     from tml_image_editing_defense_torch.attack import chunk_graph
+    from tml_image_editing_defense_torch.ops import group_norm as gn
 
+    norms = chunk_graph.kernel_runs(gn.KERNELS)
+    GN_RUNS.append(norms)
+    require(norms[GROUP_NORM_FWD] > 0, ("no group norm kernel ran on a path", norms))
     return chunk_graph.kernel_runs(kernels)
 
 
@@ -3074,6 +3204,10 @@ def main(argv) -> int:
           "K1-K3 refuse a misaligned tensor", flush=True)
     report["flash"], report["updates"] = flash, check_updates(pk, gen)
     PHASE_END_S["kernels"] = time.perf_counter() - STARTED
+    report["group_norm"] = check_group_norm(gen)
+    print_group_norm(report["group_norm"])
+    free_card()
+    PHASE_END_S["group_norm"] = time.perf_counter() - STARTED
 
     kernels = fa.KERNELS + pk.KERNELS
     held = report["held_after_gb"] = {}
@@ -3794,6 +3928,9 @@ def main(argv) -> int:
         print("[memory] GB allocated on the card after each path: "
               + ", ".join(f"{k} {v:.3f}" for k, v in held.items())
               + f" (limit {HELD_LIMIT_GB})", flush=True)
+        report["group_norm_runs"] = GN_RUNS
+        print(f"[group norm] kernel runs on each of {len(GN_RUNS)} launch-counted paths (none "
+              "without): forward " + ", ".join(str(r[GROUP_NORM_FWD]) for r in GN_RUNS), flush=True)
         report["phase_end_s"] = PHASE_END_S
         print("[time] seconds since the start at the end of each phase: "
               + ", ".join(f"{k} {v:.0f}" for k, v in PHASE_END_S.items()), flush=True)

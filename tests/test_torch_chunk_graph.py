@@ -581,9 +581,9 @@ def test_chunk_graph_share_reads_the_traced_iterations(monkeypatch, case):
 
 
 def _kernels():
-    from tml_image_editing_defense_torch.ops import flash_attention, pgd_kernels
+    from tml_image_editing_defense_torch.ops import flash_attention, group_norm, pgd_kernels
 
-    return flash_attention.KERNELS + pgd_kernels.KERNELS
+    return flash_attention.KERNELS + pgd_kernels.KERNELS + group_norm.KERNELS
 
 
 @pytest.fixture(scope="module")
@@ -662,7 +662,8 @@ def test_graphed_step_is_the_eager_step_on_the_card(card, tmp_path):
     captured = {k[len("captured."):]: n for k, n in graphed[0][2].items()
                 if k.startswith("captured.")}
     flash = {k: n for k, n in eager_launches.items() if k.startswith("tid_flash")}
-    assert captured and set(captured) <= set(flash)
+    norms = {k for k, n in eager_launches.items() if k.startswith("tid_group_norm") and n}
+    assert captured and set(captured) <= set(flash) | norms and norms <= set(captured)
     for k, n in eager_launches.items():
         assert graphed_launches[k] == n - (ITERS * REPS - 2) * captured.get(k, 0), k
     assert graphed_runs == eager_launches

@@ -175,10 +175,14 @@ def test_attention_spans_follow_the_route_rule(runs):
     assert fwd["flash"] and fwd["chunked"]
     # plain attention has no backward of its own to span
     assert bwd == Counter({r: n for r, n in fwd.items() if r != "plain"})
-    # the CPU's chunks run eager, one counted a chunk
+    # the CPU's chunks run eager, one counted a chunk; every group norm runs
+    # the plain route, 20 a tiny UNet call, 10 an encode, 14 a decode
+    # (tests/test_torch_group_norm.py counts them by hand)
     chunks = ITERS * REPS // runs["attack"].cfg.eot_chunk
+    calls = Counter(s.name for s in rec.spans)
+    norms = 20 * calls["tid.unet"] + 10 * calls["tid.vae.encode"] + 14 * calls["tid.vae.decode"]
     assert rec.totals == {**{f"attention.{r}": n for r, n in fwd.items()},
-                          "eot.chunks.eager": chunks}
+                          "eot.chunks.eager": chunks, "group_norm.plain": norms}
     for s in rec.spans:
         if s.name == "tid.attention":
             assert s.counts == {f"attention.{s.attrs['route']}": 1}
@@ -309,9 +313,9 @@ def card():
 
 
 def _all_kernels():
-    from tml_image_editing_defense_torch.ops import flash_attention, pgd_kernels
+    from tml_image_editing_defense_torch.ops import flash_attention, group_norm, pgd_kernels
 
-    return flash_attention.KERNELS + pgd_kernels.KERNELS
+    return flash_attention.KERNELS + pgd_kernels.KERNELS + group_norm.KERNELS
 
 
 @pytest.mark.chip

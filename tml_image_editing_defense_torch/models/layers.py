@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tml_image_editing_defense_torch.ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
+from tml_image_editing_defense_torch.ops.group_norm import group_norm
 from tml_image_editing_defense_torch.utils import profiling
 
 
@@ -69,10 +70,10 @@ class ResnetBlock(nn.Module):
                               if in_channels != out_channels else None)
 
     def forward(self, x, temb: Optional[torch.Tensor] = None):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(group_norm(x, self.norm1, silu=True))
         if self.time_emb_proj is not None and temb is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(group_norm(h, self.norm2, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -306,7 +307,7 @@ class Transformer2D(nn.Module):
     def forward(self, x, context):
         b, c, h, w = x.shape
         residual = x
-        x = self.norm(x)
+        x = group_norm(x, self.norm, silu=False)
         if self.use_linear_projection:
             x = self.proj_in(x.permute(0, 2, 3, 1).reshape(b, h * w, c))
         else:
@@ -374,7 +375,7 @@ class SelfAttentionBlock(nn.Module):
     def forward(self, x):
         b, c, h, w = x.shape
         res = x
-        x = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        x = group_norm(x, self.group_norm, silu=False).permute(0, 2, 3, 1).reshape(b, h * w, c)
         q = self.to_q(x)[:, :, None, :]
         k = self.to_k(x)[:, :, None, :]
         v = self.to_v(x)[:, :, None, :]

@@ -15,7 +15,6 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from tml_image_editing_defense_torch.models.layers import (
     Block,
@@ -26,6 +25,7 @@ from tml_image_editing_defense_torch.models.layers import (
     Upsample,
     timestep_embedding,
 )
+from tml_image_editing_defense_torch.ops.group_norm import group_norm
 from tml_image_editing_defense_torch.utils import profiling
 
 
@@ -240,4 +240,4 @@ class UNet2DCondition(nn.Module):
                     h = block.attentions[j](h, ctx)
             h = block.resample(h)
 
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(group_norm(h, self.conv_norm_out, silu=True))

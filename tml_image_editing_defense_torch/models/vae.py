@@ -15,6 +15,7 @@ from tml_image_editing_defense_torch.models.layers import (
     SelfAttentionBlock,
     Upsample,
 )
+from tml_image_editing_defense_torch.ops.group_norm import group_norm
 from tml_image_editing_defense_torch.utils import profiling
 
 
@@ -83,7 +84,7 @@ class Encoder(nn.Module):
                 h = resnet(h)
             h = block.resample(h)
         h = _run_mid(self.mid_block, h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(group_norm(h, self.conv_norm_out, silu=True))
 
 
 class Decoder(nn.Module):
@@ -111,7 +112,7 @@ class Decoder(nn.Module):
             for resnet in block.resnets:
                 h = resnet(h)
             h = block.resample(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(group_norm(h, self.conv_norm_out, silu=True))
 
 
 class AutoencoderKL(nn.Module):

@@ -27,7 +27,7 @@ import torch
 from tml_image_editing_defense_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("flash_attention.cu", "pgd_update.cu")
+SOURCES = ("flash_attention.cu", "pgd_update.cu", "group_norm.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
